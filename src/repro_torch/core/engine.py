@@ -1,0 +1,638 @@
+"""The simulation engine: ragged multi-tenant guests in one shared window loop
+(port of ``repro.core.engine``'s main path).
+
+* :class:`GuestSpec` -- one guest's shape and trace identity.
+* :class:`HostSpec` -- the shared host geometry and policy knobs.
+* :class:`EngineSpec` -- the combined config plus the segment-offset tables
+  mapping each guest to its logical and GPA huge-page ranges. The padded
+  tables are built once per spec and device and kept as device tensors.
+
+:func:`run` drives an :class:`ArrayTrace` window by window: a Python loop
+over windows (PyTorch runs eagerly, so there is no scan to fuse), with the
+collector series stacked on the device and copied to the host once per
+``windows_per_step`` chunk. Entry points (:func:`build`,
+:func:`init_engine_state`, :func:`run`, :func:`run_series`) run on CUDA
+unless the caller passes ``device="cpu"``; without a CUDA device they raise.
+
+The state is updated in place window by window (see ``core.types``): the
+state handed to :func:`run` is consumed.
+
+Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
+items: on-device trace synthesis (:class:`SynthTrace`), the sharded runs
+(:func:`run_sharded`), the churn engine, n-tier hosts and the ``tco``
+collector.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import address_space as asp
+from repro_torch.core import gpac, metrics, telemetry, tiering
+from repro_torch.core.types import GpacConfig, TieredState, allocated_hp_mask, init_state
+from repro_torch.kernels import registry as kernels_registry
+from repro_torch.kernels import runtime
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP queue 1, item {item})")
+
+
+# --------------------------------------------------------------------------
+# geometry specs
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class GuestSpec:
+    """One guest's geometry and trace identity (``cl=None`` inherits the
+    host's Consolidation Limit)."""
+
+    n_logical: int
+    cl: int | None = None
+    gpa_slack: float = 0.25
+    workload: str = "redis"
+    seed: int = 0
+
+    def hp_need(self, hp_ratio: int) -> int:
+        return -(-self.n_logical // hp_ratio)
+
+    def hp_size(self, hp_ratio: int) -> int:
+        need = self.hp_need(hp_ratio)
+        return need + max(2, int(need * self.gpa_slack))
+
+
+@dataclasses.dataclass(frozen=True)
+class HostSpec:
+    """Shared host geometry + default policy knobs for the combined config.
+    ``tiers`` (n-tier hierarchies) is not ported yet and must stay None."""
+
+    hp_ratio: int = 512
+    near_fraction: float = 0.5
+    n_near: int = 0
+    base_elems: int = 8
+    cl: int = 64
+    hot_threshold: int = 1
+    ipt_windows: int = 8
+    ipt_min_hits: int = 1
+    reconsolidate_cooldown: int = 2
+    dtype: Any = torch.float32
+    tiers: tuple | None = None
+
+    def __post_init__(self):
+        if self.tiers is not None:
+            raise _not_ported("HostSpec.tiers (n-tier hierarchies)", 12)
+        if self.hp_ratio < 1:
+            raise ValueError(
+                f"HostSpec: hp_ratio must be >= 1, got {self.hp_ratio}")
+        if not 0.0 < self.near_fraction <= 1.0:
+            raise ValueError(
+                f"HostSpec: near_fraction must be in (0, 1], got "
+                f"{self.near_fraction}")
+        if self.n_near < 0:
+            raise ValueError(
+                f"HostSpec: n_near must be >= 0 (0 means derive from "
+                f"near_fraction), got {self.n_near}")
+        if self.base_elems < 1:
+            raise ValueError(
+                f"HostSpec: base_elems must be >= 1, got {self.base_elems}")
+        if not 1 <= self.cl <= self.hp_ratio:
+            raise ValueError(
+                f"HostSpec: Consolidation Limit must be in [1, hp_ratio="
+                f"{self.hp_ratio}], got cl={self.cl}")
+
+
+class SegmentTables(NamedTuple):
+    """An :class:`EngineSpec`'s segment tables as tensors on one device."""
+
+    logical_pad: torch.Tensor  # int32[n_guests, max_logical], -1 padded
+    hp_pad: torch.Tensor  # int32[n_guests, max_hp], -1 padded
+    cl_per_logical: torch.Tensor  # int32[n_logical]
+    logical_lo: torch.Tensor  # int32[n_guests, 1] first logical id per guest
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """Static engine geometry: combined config + per-guest segment offsets.
+
+    Guest ``g`` owns logical pages ``[logical_offsets[g],
+    logical_offsets[g+1])`` and GPA huge pages ``[hp_offsets[g],
+    hp_offsets[g+1])``; segments are disjoint and tile their spaces.
+    ``kernel_backend`` is the registry knob (``"auto"`` | ``"torch"``);
+    ``arbitration_stride`` runs the host tick only every that many windows.
+    """
+
+    cfg: GpacConfig
+    guests: tuple[GuestSpec, ...]
+    logical_offsets: tuple[int, ...]  # len n_guests+1
+    hp_offsets: tuple[int, ...]  # len n_guests+1
+    kernel_backend: str = "auto"
+    arbitration_stride: int = 1
+
+    @property
+    def n_guests(self) -> int:
+        return len(self.guests)
+
+    def logical_range(self, g: int) -> tuple[int, int]:
+        return self.logical_offsets[g], self.logical_offsets[g + 1]
+
+    def hp_range(self, g: int) -> tuple[int, int]:
+        return self.hp_offsets[g], self.hp_offsets[g + 1]
+
+    def guest_cl(self, g: int) -> int:
+        cl = self.guests[g].cl
+        return self.cfg.cl if cl is None else cl
+
+    @property
+    def max_logical(self) -> int:
+        return max(hi - lo for lo, hi in zip(self.logical_offsets, self.logical_offsets[1:]))
+
+    @property
+    def max_hp(self) -> int:
+        return max(hi - lo for lo, hi in zip(self.hp_offsets, self.hp_offsets[1:]))
+
+    def logical_pad_index(self) -> np.ndarray:
+        """int32[n_guests, max_logical]: row g = guest g's global logical
+        ids, -1 padded past its segment."""
+        out = np.full((self.n_guests, self.max_logical), -1, np.int32)
+        for g in range(self.n_guests):
+            lo, hi = self.logical_range(g)
+            out[g, : hi - lo] = np.arange(lo, hi, dtype=np.int32)
+        return out
+
+    def hp_pad_index(self) -> np.ndarray:
+        """int32[n_guests, max_hp]: row g = guest g's global GPA huge-page
+        ids, -1 padded."""
+        out = np.full((self.n_guests, self.max_hp), -1, np.int32)
+        for g in range(self.n_guests):
+            lo, hi = self.hp_range(g)
+            out[g, : hi - lo] = np.arange(lo, hi, dtype=np.int32)
+        return out
+
+    def cl_per_logical(self) -> np.ndarray:
+        """int32[n_logical]: the CL of the guest owning each logical page."""
+        out = np.empty((self.cfg.n_logical,), np.int32)
+        for g in range(self.n_guests):
+            lo, hi = self.logical_range(g)
+            out[lo:hi] = self.guest_cl(g)
+        return out
+
+    def tables(self, device) -> SegmentTables:
+        """The segment tables as tensors on ``device``, built once per spec
+        and device (at full width ``logical_pad`` alone is 13 MB)."""
+        return _segment_tables(self, torch.device(device))
+
+    def localize(self, local_ids: torch.Tensor) -> torch.Tensor:
+        """Guest-local ids ``int32[n_guests, k]`` -> combined-space ids (-1
+        padding passes through)."""
+        lo = self.tables(local_ids.device).logical_lo
+        return torch.where(local_ids >= 0, local_ids + lo, -1)
+
+
+@functools.lru_cache(maxsize=16)
+def _segment_tables(spec: EngineSpec, device: torch.device) -> SegmentTables:
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    lo = np.asarray(spec.logical_offsets[:-1], np.int32)[:, None]
+    return SegmentTables(
+        logical_pad=t(spec.logical_pad_index()),
+        hp_pad=t(spec.hp_pad_index()),
+        cl_per_logical=t(spec.cl_per_logical()),
+        logical_lo=t(np.ascontiguousarray(lo)),
+    )
+
+
+# --------------------------------------------------------------------------
+# construction
+# --------------------------------------------------------------------------
+def build(
+    guests: tuple[GuestSpec, ...] | list,
+    host: HostSpec = HostSpec(),
+    device=None,
+) -> tuple[EngineSpec, TieredState]:
+    """Build N (possibly ragged) guests over one shared host space; guest g's
+    pages are identity-placed at the start of its own GPA segment. The state
+    lives on ``device`` (CUDA unless named)."""
+    dev = runtime.resolve_device(device)
+    guests = tuple(
+        GuestSpec(n_logical=g) if isinstance(g, int) else g for g in guests)
+    if not guests:
+        raise ValueError("need at least one GuestSpec")
+    hp_sizes = [g.hp_size(host.hp_ratio) for g in guests]
+    logical_offsets = tuple(np.cumsum([0] + [g.n_logical for g in guests]).tolist())
+    hp_offsets = tuple(np.cumsum([0] + hp_sizes).tolist())
+    n_hp = hp_offsets[-1]
+    total_need = sum(g.hp_need(host.hp_ratio) for g in guests)
+    n_near = host.n_near or max(1, int(host.near_fraction * total_need))
+    cfg = GpacConfig(
+        n_logical=logical_offsets[-1],
+        hp_ratio=host.hp_ratio,
+        n_gpa_hp=n_hp,
+        n_near=min(n_near, n_hp - 1),
+        base_elems=host.base_elems,
+        cl=host.cl,
+        hot_threshold=host.hot_threshold,
+        ipt_windows=host.ipt_windows,
+        ipt_min_hits=host.ipt_min_hits,
+        reconsolidate_cooldown=host.reconsolidate_cooldown,
+        dtype=host.dtype,
+    )
+    spec = EngineSpec(cfg, guests, logical_offsets, hp_offsets)
+    return spec, init_engine_state(spec, device=dev)
+
+
+def init_engine_state(spec: EngineSpec, device=None) -> TieredState:
+    """Identity-map each guest's logical pages into its own GPA segment."""
+    dev = runtime.resolve_device(device)
+    cfg = spec.cfg
+    gpt = np.full((cfg.n_logical,), -1, np.int32)
+    rmap = np.full((cfg.n_gpa,), -1, np.int32)
+    for g, guest in enumerate(spec.guests):
+        lo, hi = spec.logical_range(g)
+        hp_lo, _ = spec.hp_range(g)
+        gpa = hp_lo * cfg.hp_ratio + np.arange(guest.n_logical)
+        gpt[lo:hi] = gpa
+        rmap[gpa] = np.arange(lo, hi)
+    state = init_state(cfg, device=dev)
+    return dataclasses.replace(
+        state, gpt=torch.from_numpy(gpt).to(dev), rmap=torch.from_numpy(rmap).to(dev))
+
+
+def spec_from_config(cfg: GpacConfig, workload: str = "redis", seed: int = 0) -> EngineSpec:
+    """Single-guest spec spanning an existing config's whole space."""
+    guest = GuestSpec(n_logical=cfg.n_logical, cl=cfg.cl, workload=workload, seed=seed)
+    return EngineSpec(cfg, (guest,), (0, cfg.n_logical), (0, cfg.n_gpa_hp))
+
+
+def symmetric_spec(cfg: GpacConfig, n_guests: int, cl: int | None = None) -> EngineSpec:
+    """Spec for N equal guests tiling an existing combined config."""
+    if cfg.n_logical % n_guests or cfg.n_gpa_hp % n_guests:
+        raise ValueError(
+            f"symmetric_spec: n_logical={cfg.n_logical} / n_gpa_hp="
+            f"{cfg.n_gpa_hp} not divisible by n_guests={n_guests}")
+    lpg = cfg.n_logical // n_guests
+    hpg = cfg.n_gpa_hp // n_guests
+    guests = tuple(GuestSpec(n_logical=lpg, cl=cl) for _ in range(n_guests))
+    return EngineSpec(
+        cfg, guests,
+        tuple(range(0, cfg.n_logical + 1, lpg)),
+        tuple(range(0, cfg.n_gpa_hp + 1, hpg)),
+    )
+
+
+# --------------------------------------------------------------------------
+# trace sources
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ArrayTrace:
+    """A packed per-guest trace (``pack_traces`` / ``guest_traces``
+    output): ``int32[n_guests, n_windows, k]`` guest-local ids, -1 padded."""
+
+    traces: np.ndarray
+
+    def __post_init__(self):
+        object.__setattr__(self, "traces", np.asarray(self.traces))
+
+    @property
+    def n_windows(self) -> int:
+        return self.traces.shape[1]
+
+
+class SynthTrace:
+    """On-device workload synthesis: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("SynthTrace (on-device trace synthesis)", 10)
+
+
+def pack_traces(per_guest: list[np.ndarray]) -> np.ndarray:
+    """Stack ragged per-guest traces ``[n_windows, k_g]`` into one padded
+    ``int32[n_guests, n_windows, k_max]`` array (-1 padding)."""
+    n_w = {t.shape[0] for t in per_guest}
+    if len(n_w) != 1:
+        raise ValueError(f"guests disagree on n_windows: {sorted(n_w)}")
+    k = max(t.shape[1] for t in per_guest)
+    out = np.full((len(per_guest), n_w.pop(), k), -1, np.int32)
+    for g, t in enumerate(per_guest):
+        out[g, :, : t.shape[1]] = t
+    return out
+
+
+def guest_traces(spec: EngineSpec, n_windows: int, accesses_per_window: int) -> np.ndarray:
+    """Each guest's trace from its GuestSpec workload/seed (numpy
+    generators), packed; identical guests share one generation."""
+    from repro_torch.data import traces as tr
+
+    cache: dict = {}
+
+    def one(g: GuestSpec) -> np.ndarray:
+        ts = tr.TraceSpec(
+            g.workload, n_logical=g.n_logical, hp_ratio=spec.cfg.hp_ratio,
+            n_windows=n_windows, accesses_per_window=accesses_per_window,
+            seed=g.seed)
+        if ts not in cache:
+            cache[ts] = tr.generate(ts)
+        return cache[ts]
+
+    return pack_traces([one(g) for g in spec.guests])
+
+
+# --------------------------------------------------------------------------
+# metric collectors (run on the device after every window)
+# --------------------------------------------------------------------------
+_COLLECTORS: dict[str, Callable] = {}
+
+
+def register_collector(name: str, fn: Callable | None = None):
+    """Register a collector ``fn(spec, state, window) -> dict[str,
+    Tensor]``; ``window`` holds the access-time per-guest hit counts."""
+    if fn is None:
+        return lambda f: register_collector(name, f)
+    if name in _COLLECTORS:
+        raise ValueError(f"metric collector {name!r} already registered")
+    _COLLECTORS[name] = fn
+    return fn
+
+
+def get_collector(name: str) -> Callable:
+    try:
+        return _COLLECTORS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown metric collector {name!r} (have {collectors()})") from None
+
+
+def collectors() -> tuple[str, ...]:
+    return tuple(_COLLECTORS)
+
+
+def run_collectors(spec: EngineSpec, state: TieredState, window: dict,
+                   collect: tuple[str, ...]) -> dict:
+    """Run the requested collectors, rejecting colliding output keys."""
+    out = {}
+    for name in collect:
+        emitted = get_collector(name)(spec, state, window)
+        clash = set(emitted) & set(out)
+        if clash:
+            raise ValueError(
+                f"collector {name!r} emits keys {sorted(clash)} already "
+                f"produced by an earlier collector in {collect}")
+        out.update(emitted)
+    return out
+
+
+@register_collector("hits")
+def _collect_hits(spec, state, window) -> dict:
+    """Per-guest near/far hit counts for this window (access-time tiers)."""
+    return dict(near_hits=window["near_hits"], far_hits=window["far_hits"])
+
+
+@register_collector("near_blocks")
+def _collect_near_blocks(spec, state, window) -> dict:
+    """Per-guest allocated blocks currently in the near tier."""
+    cfg = spec.cfg
+    near = allocated_hp_mask(cfg, state) & (state.block_table < cfg.n_near)
+    hp_pad = spec.tables(state.device).hp_pad
+    seg = (hp_pad >= 0) & near[hp_pad.clamp(min=0)]
+    return dict(near_blocks=seg.sum(dim=1).to(torch.int32))
+
+
+@register_collector("snapshot")
+def _collect_snapshot(spec, state, window) -> dict:
+    """Host-space scalar metrics (``metrics.device_snapshot``); not
+    composable with ``hits`` (both emit ``near_hits``/``far_hits``)."""
+    return metrics.device_snapshot(spec.cfg, state)
+
+
+@register_collector("tco")
+def _collect_tco(spec, state, window) -> dict:
+    raise _not_ported("the 'tco' collector (n-tier pricing)", 12)
+
+
+# --------------------------------------------------------------------------
+# the window loop
+# --------------------------------------------------------------------------
+def _window(
+    spec: EngineSpec,
+    state: TieredState,
+    accesses: torch.Tensor,  # int32[n_guests, k] guest-local ids, -1 padded
+    epoch: int,  # host-side copy of state.epoch
+    policy: str,
+    backend: str,
+    use_gpac: bool,
+    max_batches: int,
+    budget: int,
+    collect: tuple[str, ...],
+) -> tuple[TieredState, dict]:
+    """One engine window: translate and record every guest's accesses, one
+    batched GPAC pass, the host tier tick, the window roll, then the
+    collectors."""
+    cfg = spec.cfg
+    ids = spec.localize(accesses)
+    slot, _, valid = asp.translate(cfg, state, ids)
+    window = dict(
+        near_hits=(valid & (slot < cfg.n_near)).sum(dim=1).to(torch.int32),
+        far_hits=(valid & (slot >= cfg.n_near)).sum(dim=1).to(torch.int32),
+    )
+    state = asp.record_accesses(
+        cfg, state, ids.reshape(-1), kernel_backend=spec.kernel_backend)
+    if use_gpac:
+        state = gpac.gpac_maintenance_ragged(spec, state, backend, max_batches)
+    state = tiering.strided_tick(
+        cfg, state, policy, stride=spec.arbitration_stride, budget=budget,
+        epoch=epoch)
+    state = telemetry.end_window(cfg, state)
+    return state, run_collectors(spec, state, window, collect)
+
+
+def _round_wps(n_windows: int, windows_per_step: int, strict: bool) -> int:
+    """Chunk size: ``windows_per_step`` rounded down to a divisor of
+    ``n_windows`` (0 or oversized = the whole run), unless that would more
+    than double the number of chunks; ``strict`` keeps the requested size."""
+    wps = n_windows if windows_per_step <= 0 else min(windows_per_step, n_windows)
+    if strict:
+        return wps
+    div = wps
+    while n_windows % div:
+        div -= 1
+    if n_windows // div > 2 * (-(-n_windows // wps)):
+        return wps
+    return div
+
+
+def _with_overrides(spec: EngineSpec, kernel_backend: str | None,
+                    arbitration_stride: int | None) -> EngineSpec:
+    """Fold the run-level overrides into the spec and validate both."""
+    if kernel_backend is not None:
+        spec = dataclasses.replace(spec, kernel_backend=kernel_backend)
+    if arbitration_stride is not None:
+        spec = dataclasses.replace(spec, arbitration_stride=int(arbitration_stride))
+    kernels_registry.resolve_backend(spec.kernel_backend)
+    s = spec.arbitration_stride
+    if not isinstance(s, int) or isinstance(s, bool) or s < 1:
+        raise ValueError(f"arbitration_stride must be an int >= 1, got {s!r}")
+    return spec
+
+
+def _check_device(state: TieredState, device) -> torch.device:
+    dev = runtime.resolve_device(device)
+    have = state.device
+    if have.type != dev.type or (dev.index is not None and have.index != dev.index):
+        raise ValueError(f"state lives on {have}, but the run asks for {dev}")
+    return have
+
+
+def _as_source(source) -> ArrayTrace:
+    if isinstance(source, ArrayTrace):
+        return source
+    if isinstance(source, (np.ndarray, list, tuple)) or hasattr(source, "__array__"):
+        return ArrayTrace(np.asarray(source))
+    raise TypeError(
+        f"expected an ArrayTrace or a packed trace array, got {type(source).__name__}")
+
+
+def _validate(spec: EngineSpec, source: ArrayTrace, collect) -> tuple[str, ...]:
+    traces = source.traces
+    if traces.ndim != 3 or traces.shape[0] != spec.n_guests:
+        raise ValueError(
+            f"traces must be [n_guests={spec.n_guests}, n_windows, k], got "
+            f"{traces.shape}")
+    collect = tuple(collect)
+    for name in collect:
+        get_collector(name)  # fail fast on unknown collectors
+    return collect
+
+
+def step(
+    spec: EngineSpec,
+    state: TieredState,
+    accesses: torch.Tensor,
+    policy: str = "memtierd",
+    backend: str = "ipt",
+    use_gpac: bool = True,
+    max_batches: int = 4,
+    budget: int = 64,
+    collect: tuple[str, ...] = ("hits", "near_blocks"),
+    *,
+    arbitration_stride: int | None = None,
+) -> tuple[TieredState, dict]:
+    """One engine window (``accesses`` int32[n_guests, k] on the state's
+    device); reads ``state.epoch`` from the device once."""
+    spec = _with_overrides(spec, None, arbitration_stride)
+    collect = tuple(collect)
+    for name in collect:
+        get_collector(name)
+    return _window(spec, state, accesses, int(state.epoch), policy, backend,
+                   use_gpac, max_batches, budget, collect)
+
+
+def run(
+    spec: EngineSpec,
+    state: TieredState,
+    source: ArrayTrace | np.ndarray,
+    *,
+    policy: str = "memtierd",
+    backend: str = "ipt",
+    use_gpac: bool = True,
+    max_batches: int = 4,
+    budget: int = 64,
+    windows_per_step: int = 0,
+    strict_wps: bool = False,
+    collect: tuple[str, ...] = ("hits", "near_blocks"),
+    kernel_backend: str | None = None,
+    arbitration_stride: int | None = None,
+    device=None,
+) -> tuple[TieredState, dict]:
+    """Drive every window of ``source`` through the engine.
+
+    ``windows_per_step`` sets how many windows share one host transfer: the
+    accesses of a chunk go to the device in one copy, and the collector
+    series of a chunk, stacked on the device, come back in one copy per
+    series (rounded as in the reference, see :func:`_round_wps`). The state
+    must live on ``device`` (CUDA unless named).
+
+    Returns ``(state, series)``: ``series[k]`` is a numpy array of shape
+    ``[n_windows, ...]`` per collector output; ``{}`` when the source has no
+    windows or ``collect`` is empty.
+    """
+    dev = _check_device(state, device)
+    source = _as_source(source)
+    spec = _with_overrides(spec, kernel_backend, arbitration_stride)
+    collect = _validate(spec, source, collect)
+    n_w = source.n_windows
+    if n_w == 0:
+        return state, {}
+    by_window = np.ascontiguousarray(
+        np.transpose(source.traces, (1, 0, 2)), dtype=np.int32)
+    wps = _round_wps(n_w, windows_per_step, strict_wps)
+    epoch = int(state.epoch)  # the only device read of the run's control flow
+    chunks = []
+    for s in range(0, n_w, wps):
+        acc = torch.from_numpy(by_window[s : s + wps]).to(dev)
+        outs = []
+        for w in range(acc.shape[0]):
+            state, out = _window(spec, state, acc[w], epoch, policy, backend,
+                                 use_gpac, max_batches, budget, collect)
+            epoch += 1
+            outs.append(out)
+        if collect:
+            chunks.append({
+                k: torch.stack([o[k] for o in outs]).cpu().numpy()
+                for k in outs[0]})
+    if not collect:
+        return state, {}
+    series = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    return state, series
+
+
+def run_series(
+    spec: EngineSpec,
+    state: TieredState,
+    source: ArrayTrace | np.ndarray,
+    tier_pair: str = "dram_nvmm",
+    *,
+    device=None,
+    **kw,
+) -> tuple[TieredState, dict]:
+    """:func:`run` + the per-VM series the at-scale figures plot: near
+    blocks, per-window hit rate and modeled throughput."""
+    n_g = spec.n_guests
+    source = _as_source(source)
+    _validate(spec, source, ())
+    if source.n_windows == 0:
+        _check_device(state, device)
+        return state, dict(
+            near_blocks=np.zeros((0, n_g), np.int64),
+            hit_rate=np.zeros((0, n_g)),
+            throughput=np.zeros((0, n_g)),
+        )
+    state, out = run(spec, state, source, collect=("hits", "near_blocks"),
+                     device=device, **kw)
+    nh = out["near_hits"].astype(np.float64)
+    fh = out["far_hits"].astype(np.float64)
+    hit_rate, throughput = metrics.throughput_from_hits(nh, fh, tier_pair)
+    return state, dict(
+        near_blocks=out["near_blocks"].astype(np.int64),
+        hit_rate=hit_rate,
+        throughput=throughput,
+    )
+
+
+def run_sharded(*args, **kwargs):
+    raise _not_ported("run_sharded (device-sharded runs)", 13)
+
+
+def init_churn(*args, **kwargs):
+    raise _not_ported("the churn engine", 11)
+
+
+def run_churn(*args, **kwargs):
+    raise _not_ported("the churn engine", 11)
+
+
+def step_churn(*args, **kwargs):
+    raise _not_ported("the churn engine", 11)
