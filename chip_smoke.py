@@ -15,7 +15,12 @@ first use), then, printing one JSON line per phase:
    version on the same inputs (tolerance: exact, the kernels are integer
    arithmetic and bit copies), timed beside the plain version, one library
    call computing the same function, and the least time the card could take
-   (bytes over 3.35 TB/s, operations over 67 TFLOP/s);
+   (bytes over 3.35 TB/s, operations over 67 TFLOP/s); after the serve
+   phase, the same for the serving path's kernels at its shapes: the
+   paged-attention kernel at the full-width decode shape in bf16 and float32
+   (tolerance below, SERVE_TOL), and hot_count at 4 pages per block,
+   gather_rows on 8-byte rows and topk_rows on the one-daemon filter row,
+   bit for bit;
 4. engine -- one Redis guest at the paper's size (3,276,800 4 KiB pages,
    2 MB huge pages, 16.8 GB of payload pools on the card) run through
    ``engine.run`` for 16 memtierd windows and 4 each of autonuma and tpp,
@@ -25,7 +30,16 @@ first use), then, printing one JSON line per phase:
    initial payload;
 5. profile -- four memtierd windows through the kernels under
    torch.profiler: the device's busy time and idle share per window, the
-   four kernels' share of the busy time, and device time by kernel name.
+   four kernels' share of the busy time, and device time by kernel name;
+6. serve -- qwen2-0.5b at full width in bf16 (random weights from a seeded
+   torch.Generator) through ``repro_torch.serve.engine.Engine``: 16 requests
+   of 1,024 prompt tokens and 32 new tokens, 8 sequences of up to 2,048
+   tokens in 16-token pages, GPAC every 8 decode steps. The batch runs
+   through the kernels with GPAC off and with GPAC on (the token streams
+   must be identical, GPAC must consolidate pages, and paged_attention must
+   launch 24 times per decode step), then with ``kernel_backend="torch"``
+   (the first decode step's logits must agree with the kernel run's within
+   SERVE_TOL); then four decode steps under torch.profiler.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero; so it does without a CUDA device, and outside a
@@ -47,10 +61,14 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import address_space as asp  # noqa: E402
 from repro_torch.core import engine, filter as pfilter, telemetry  # noqa: E402
 from repro_torch.data import traces  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
+from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
+from repro_torch.serve.scheduler import Request, SchedulerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA cores (the table's non-tensor rate)
@@ -63,6 +81,7 @@ N_WINDOWS, APW = 16, 2_097_152  # 2 * APW >= N_LOGICAL: the histogram branch
 RUN = dict(backend="ipt", use_gpac=True, max_batches=4, budget=64,
            windows_per_step=4)
 TIMED_RUNS = 25
+ENGINE_KERNELS = ("bincount", "hot_count", "topk_rows", "gather_rows")  # the engine's path
 
 KERNEL_SOURCES = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "bincount": ("src/repro_torch/csrc/histogram.cu",
@@ -73,6 +92,8 @@ KERNEL_SOURCES = {  # name -> (CUDA source, the Pallas kernel it replaces)
                   "src/repro/kernels/topk/kernel.py:48"),
     "gather_rows": ("src/repro_torch/csrc/gather_rows.cu",
                     "src/repro/kernels/tiered_lookup/kernel.py:24"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention/kernel.py:94"),
 }
 
 
@@ -177,9 +198,9 @@ def _nbytes(*ts) -> int:
 
 
 def kernel_cases(spec, state, trace0: torch.Tensor, gen: torch.Generator) -> list:
-    """(name, case, args, library call, bytes moved, operations) for every
-    kernel at the shapes of one full-width window of the main path; the
-    inputs come from the run's own first window."""
+    """(name, case, args, library call, bytes moved, operations, tolerance)
+    for every kernel at the shapes of one full-width window of the engine's
+    main path; the inputs come from the run's own first window."""
     cfg = spec.cfg
     dev = trace0.device
     ids = spec.localize(trace0).reshape(-1)
@@ -215,34 +236,36 @@ def kernel_cases(spec, state, trace0: torch.Tensor, gen: torch.Generator) -> lis
     return [
         ("bincount", "access_histogram", (acc_ids, ones, cfg.n_logical + 1),
          lambda: torch.bincount(acc_ids64, minlength=cfg.n_logical + 1),
-         _nbytes(acc_ids, ones) + 4 * (cfg.n_logical + 1), acc_ids.numel()),
+         _nbytes(acc_ids, ones) + 4 * (cfg.n_logical + 1), acc_ids.numel(), None),
         ("bincount", "host_histogram", (hp_of, h, cfg.n_gpa_hp),
          lambda: torch.bincount(hp_of64, weights=h_f, minlength=cfg.n_gpa_hp),
-         _nbytes(hp_of, h) + 4 * cfg.n_gpa_hp, hp_of.numel()),
+         _nbytes(hp_of, h) + 4 * cfg.n_gpa_hp, hp_of.numel(), None),
         ("hot_count", "hot_subpages_per_hp", (hot_gpa, hp),
          lambda: hot_gpa.view(-1, hp).sum(dim=1, dtype=torch.int32),
-         _nbytes(hot_gpa) + 4 * cfg.n_gpa_hp, hot_gpa.numel()),
+         _nbytes(hot_gpa) + 4 * cfg.n_gpa_hp, hot_gpa.numel(), None),
         ("topk_rows", f"filter rows={mat.shape[0]} width={mat.shape[1]}", (mat, k),
          lambda: torch.topk(mat, k, dim=1),
-         _nbytes(mat) + 8 * mat.shape[0] * k, mat.numel()),
+         _nbytes(mat) + 8 * mat.shape[0] * k, mat.numel(), None),
         ("topk_rows", "rows=8 width=262144 mass ties", (mat8, k),
          lambda: torch.topk(mat8, k, dim=1),
-         _nbytes(mat8) + 8 * 8 * k, mat8.numel()),
+         _nbytes(mat8) + 8 * 8 * k, mat8.numel(), None),
         ("gather_rows", "near pool", (near_rows, near_ids),
          lambda: torch.index_select(near_rows, 0, near_ids.view(-1)),
-         2 * hp * row_bytes + _nbytes(near_ids), 0),
+         2 * hp * row_bytes + _nbytes(near_ids), 0, None),
         ("gather_rows", "far pool", (far_rows, far_ids),
          lambda: torch.index_select(far_rows, 0, far_ids.view(-1)),
-         2 * hp * row_bytes + _nbytes(far_ids), 0),
+         2 * hp * row_bytes + _nbytes(far_ids), 0, None),
     ]
 
 
-def kernels_phase(spec, state, trace0, gen) -> list[dict]:
-    """Hold every kernel to its plain version and time both. Launches made
-    here are not the main path's: the counts are reset before it runs."""
-    timer = Timer(trace0.device)
+def kernels_phase(cases: list, device, path: str) -> list[dict]:
+    """Hold every kernel to its plain version and time both. A case is
+    (name, case, args, library call, bytes, operations, tolerance); a
+    tolerance of None means bit for bit. Launches made here are not the main
+    path's: the counts are reset before it runs."""
+    timer = Timer(device)
     rows = []
-    for name, case, args, library, nbytes, ops in kernel_cases(spec, state, trace0, gen):
+    for name, case, args, library, nbytes, ops, tol in cases:
         kspec = registry.get_kernel(name)
         got, want = kspec.kernel(*args), kspec.plain(*args)
         torch.cuda.synchronize()
@@ -250,8 +273,12 @@ def kernels_phase(spec, state, trace0, gen) -> list[dict]:
         want = want if isinstance(want, tuple) else (want,)
         err = 0.0
         for g, w in zip(got, want):
-            if not same_bits(g, w):
+            if tol is None and not same_bits(g, w):
                 raise AssertionError(f"{name} ({case}) differs from its plain version")
+            if tol is not None:
+                if g.dtype != w.dtype or not torch.isfinite(g).all():
+                    raise AssertionError(f"{name} ({case}): wrong dtype or not finite")
+                torch.testing.assert_close(g.float(), w.float(), **tol)
             err = max(err, float((g.double() - w.double()).abs().max()) if g.numel() else 0.0)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
         source, replaces = KERNEL_SOURCES[name]
@@ -259,8 +286,9 @@ def kernels_phase(spec, state, trace0, gen) -> list[dict]:
         plain = timer(lambda: kspec.plain(*args))
         lib = timer(library)
         rows.append(dict(
-            name=name, case=case, route="cuda", source=source, replaces=replaces,
-            launches=None, max_abs_err=err, ms=kern["ms"], plain_ms=plain["ms"],
+            name=name, case=case, path=path, route="cuda", source=source,
+            replaces=replaces, launches=None, max_abs_err=err, tolerance=tol or "exact",
+            ms=kern["ms"], plain_ms=plain["ms"],
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib["ms"], call_ms=kern["call_ms"],
@@ -351,7 +379,7 @@ def engine_phase(spec, trace: np.ndarray, policy: str, n_windows: int, device) -
         if backend == "torch" and any(counts.values()):
             raise AssertionError(f"{policy}: the plain run launched kernels: {counts}")
         if backend == "auto":
-            missing = [k for k, n in counts.items() if n == 0]
+            missing = [k for k in ENGINE_KERNELS if counts[k] == 0]
             if missing:
                 raise AssertionError(
                     f"{policy}: kernels never launched on the main path: {missing}")
@@ -392,12 +420,40 @@ PORT_KERNELS = ("bincount_", "hot_count_", "topk_rows_kernel", "gather_rows_")
 PROFILED_WINDOWS = 4
 
 
+def device_summary(prof, port_names: tuple, n: int, unit: str) -> dict:
+    """A profiled run of ``n`` windows or steps: the device's busy time (the
+    union of its activity intervals, kernels and copies) and idle share (the
+    rest of the span from the first to the last), the port's kernels' share
+    of the busy time, device kernels per unit, and device time by name."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:  # the trace holds no device activity: nothing to report
+        return {f"device_busy_ms_per_{unit}": None, "device_idle_share": None,
+                "port_kernels_share_of_busy": None, "top": None}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, hi = 0.0, spans[0][0]
+    for start, end in spans:
+        busy += max(0.0, end - max(start, hi))
+        hi = max(hi, end)
+    by_name: dict[str, list] = {}
+    for e in events:
+        agg = by_name.setdefault(e.name, [0, 0.0])
+        agg[0] += 1
+        agg[1] += e.time_range.elapsed_us()
+    ours = sum(us for name, (_, us) in by_name.items() if any(k in name for k in port_names))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    return {f"device_busy_ms_per_{unit}": busy / 1e3 / n,
+            "device_idle_share": 1.0 - busy / (hi - spans[0][0]),
+            "port_kernels_share_of_busy": ours / busy,
+            f"device_ops_per_{unit}": len(events) / n,
+            "top": [{"name": k[:80], "count": c, f"ms_per_{unit}": us / 1e3 / n}
+                    for k, (c, us) in top]}
+
+
 def profile_phase(spec, trace: np.ndarray, device) -> dict:
     """Where a memtierd window's device time goes: a short kernel run under
-    torch.profiler. The device's busy time is the union of its activity
-    intervals (kernels and copies), its idle share the rest of the span from
-    the first to the last; ``top`` sums device time by kernel name."""
-    from torch.autograd import DeviceType
+    torch.profiler (``device_summary``)."""
     from torch.profiler import ProfilerActivity, profile
 
     state = filled_state(spec, device)
@@ -409,32 +465,240 @@ def profile_phase(spec, trace: np.ndarray, device) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     del state
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    out = dict(phase="profile", policy="memtierd", windows=PROFILED_WINDOWS,
-               wall_s_per_window_profiled=wall / PROFILED_WINDOWS)
-    if not spans:  # the trace holds no device activity: nothing to report
-        return dict(out, device_busy_ms_per_window=None, device_idle_share=None,
-                    port_kernels_share_of_busy=None, top=None)
-    busy, hi = 0.0, spans[0][0]
-    for start, end in spans:
-        busy += max(0.0, end - max(start, hi))
-        hi = max(hi, end)
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            agg = by_name.setdefault(e.name, [0, 0.0])
-            agg[0] += 1
-            agg[1] += e.time_range.elapsed_us()
-    ours = sum(us for name, (_, us) in by_name.items()
-               if any(k in name for k in PORT_KERNELS))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return dict(
-        out, device_busy_ms_per_window=busy / 1e3 / PROFILED_WINDOWS,
-        device_idle_share=1.0 - busy / (hi - spans[0][0]),
-        port_kernels_share_of_busy=ours / busy,
-        top=[dict(name=n[:80], count=c, ms_per_window=us / 1e3 / PROFILED_WINDOWS)
-             for n, (c, us) in top])
+    return dict(phase="profile", policy="memtierd", windows=PROFILED_WINDOWS,
+                wall_s_per_window_profiled=wall / PROFILED_WINDOWS,
+                **device_summary(prof, PORT_KERNELS, PROFILED_WINDOWS, "window"))
+
+
+# --------------------------------------------------------------------------
+# 6. serving: qwen2-0.5b at full width over the GPAC-tiered paged KV cache
+# --------------------------------------------------------------------------
+SERVE = dict(max_seqs=8, max_seq_len=2048, page_size=16, pages_per_block=4,
+             near_fraction=0.4, maintenance_every=8, reserve_tokens=8)
+N_REQUESTS, PROMPT_LEN, MAX_NEW = 16, 1024, 32
+# Tolerances. paged_attention against its plain version: the same float32
+# sums in another order, so float32 outputs agree within 1e-5 and bf16
+# outputs within one bf16 rounding step (2^-7 relative). The first decode
+# step's logits of the kernel run against the plain run: a one-step bf16
+# difference in one layer's attention output passes through 24 layers of
+# bf16 residual adds, so they are held to 2^-4 of the largest logit.
+SERVE_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=1e-6, rtol=2 ** -7)}
+LOGITS_RTOL = 2 ** -4
+SERVE_KERNELS = ("paged_attention", "hot_count", "topk_rows", "gather_rows")  # the path's
+PORT_SERVE_KERNELS = ("paged_attn_", "hot_count_", "topk_rows_kernel", "gather_rows_")
+
+
+def serve_model(device):
+    cfg = configs.get("qwen2-0.5b").replace(page_size=SERVE["page_size"])
+    model = model_registry.build(cfg)
+    return model, model.init(seed=0, device=device)
+
+
+def serve_engine_for(model, params, device, use_gpac: bool, kernel_backend: str):
+    ecfg = serve_engine.EngineConfig(
+        max_seqs=SERVE["max_seqs"], max_seq_len=SERVE["max_seq_len"],
+        pages_per_block=SERVE["pages_per_block"], near_fraction=SERVE["near_fraction"],
+        sched=SchedulerConfig(max_seqs=SERVE["max_seqs"],
+                              maintenance_every=SERVE["maintenance_every"],
+                              use_gpac=use_gpac, reserve_tokens=SERVE["reserve_tokens"]))
+    return serve_engine.Engine(model, params, ecfg, device=device,
+                               kernel_backend=kernel_backend)
+
+
+def serve_requests(vocab: int, n: int | None = None) -> list:
+    n = N_REQUESTS if n is None else n
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, PROMPT_LEN).tolist(),
+                    max_new=MAX_NEW) for i in range(n)]
+
+
+def instrument(eng) -> dict:
+    """Time each prefill (between synchronisations) and keep the first
+    decode step's logits, by wrapping the engine's two calls."""
+    rec = dict(prefill_s=[], first_logits=None)
+    prefill, decode = eng._prefill_into_slot, eng.decode_fn
+
+    def timed_prefill(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(req)
+        torch.cuda.synchronize()
+        rec["prefill_s"].append(time.perf_counter() - t0)
+
+    def kept_decode(p, c, t):
+        logits, c = decode(p, c, t)
+        if rec["first_logits"] is None:
+            rec["first_logits"] = logits.clone()
+        return logits, c
+
+    eng._prefill_into_slot, eng.decode_fn = timed_prefill, kept_decode
+    return rec
+
+
+def serve_run(model, params, device, use_gpac: bool, kernel_backend: str) -> dict:
+    """The whole batch through one engine; the launch counts are set to 0
+    just before and read just after. A step's decode time is its time less
+    its prefills'; it includes the GPAC/tier maintenance on its cadence."""
+    eng = serve_engine_for(model, params, device, use_gpac, kernel_backend)
+    reqs = serve_requests(model.cfg.vocab)
+    for r in reqs:
+        eng.sched.submit(r)
+    rec = instrument(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    decode_s = []
+    t0 = time.perf_counter()
+    while eng.sched.has_work:
+        t_step, n_pre = time.perf_counter(), len(rec["prefill_s"])
+        eng.step()
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t_step - sum(rec["prefill_s"][n_pre:]))
+    wall = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    tokens = [r.out for r in reqs]
+    if not all(len(t) == MAX_NEW and all(0 <= x < model.cfg.vocab for x in t)
+               for t in tokens):
+        raise AssertionError("a request did not complete with valid tokens")
+    if not torch.isfinite(rec["first_logits"]).all():
+        raise AssertionError("non-finite logits")
+    return dict(eng=eng, tokens=tokens, launches=launches, stats=eng.stats(),
+                first_logits=rec["first_logits"], decode_steps=len(decode_s),
+                prefill_s=sum(rec["prefill_s"]), n_prefills=len(rec["prefill_s"]),
+                s_per_decode_step=statistics.median(decode_s),
+                s_per_decode_step_mean=sum(decode_s) / len(decode_s), wall_s=wall,
+                tokens_per_s=sum(map(len, tokens)) / wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def serve_phase(model, params, device) -> tuple[dict, object, dict]:
+    """GPAC off and on through the kernels, then the plain versions. Returns
+    the phase's line, the GPAC-on engine (its state feeds the serve kernel
+    rows) and the main path's launch counts (the GPAC-on kernel run)."""
+    n_layers = model.cfg.n_layers
+    runs = {}
+    for key, use_gpac, backend in (("kernels_gpac_off", False, "auto"),
+                                   ("kernels_gpac_on", True, "auto"),
+                                   ("plain_gpac_on", True, "torch")):
+        runs[key] = serve_run(model, params, device, use_gpac, backend)
+        counts = runs[key]["launches"]
+        if backend == "torch" and any(counts.values()):
+            raise AssertionError(f"serve {key}: the plain run launched kernels: {counts}")
+        if backend == "auto" and counts["paged_attention"] != runs[key]["decode_steps"] * n_layers:
+            raise AssertionError(f"serve {key}: paged_attention launched "
+                                 f"{counts['paged_attention']} times in "
+                                 f"{runs[key]['decode_steps']} decode steps")
+    on, off, plain = runs["kernels_gpac_on"], runs["kernels_gpac_off"], runs["plain_gpac_on"]
+    if on["tokens"] != off["tokens"]:
+        raise AssertionError("GPAC changed the generated tokens")
+    if on["stats"]["consolidated_pages"] == 0:
+        raise AssertionError(f"GPAC consolidated nothing: {on['stats']}")
+    missing = [k for k in SERVE_KERNELS if on["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"serve: kernels never launched on the path: {missing}")
+    diff = float((on["first_logits"] - plain["first_logits"]).abs().max())
+    scale = float(plain["first_logits"].abs().max())
+    if not diff <= LOGITS_RTOL * scale:
+        raise AssertionError(f"first decode logits differ by {diff} (largest {scale})")
+    pairs = [(a, b) for ta, tb in zip(on["tokens"], plain["tokens"]) for a, b in zip(ta, tb)]
+    keep = ("decode_steps", "prefill_s", "n_prefills", "s_per_decode_step",
+            "s_per_decode_step_mean", "wall_s", "tokens_per_s", "peak_gb", "launches")
+    line = dict(
+        phase="serve", arch=model.cfg.name, params=model.cfg.param_count(),
+        dtype=str(model.cfg.dtype), requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+        max_new=MAX_NEW, **SERVE,
+        kv_cache_gb=sum(t.numel() * t.element_size() for lc in on["eng"].cache["layers"].values()
+                        for t in lc.values()) / 1e9,
+        runs={k: {f: r[f] for f in keep} for k, r in runs.items()},
+        stats_gpac_on=on["stats"], stats_gpac_off=off["stats"],
+        tokens_identical_gpac_on_off=True,
+        first_logits_max_abs_diff_vs_plain=diff, first_logits_max_abs=scale,
+        logits_rtol=LOGITS_RTOL,
+        token_agreement_vs_plain=sum(a == b for a, b in pairs) / len(pairs))
+    del runs["kernels_gpac_off"]["eng"], runs["plain_gpac_on"]["eng"]
+    return line, on["eng"], on["launches"]
+
+
+def serve_profile_phase(model, params, device, n_steps: int = 4) -> dict:
+    """Device time of ``n_steps`` decode steps of a full batch (8 running
+    sequences, past their prefills) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = serve_engine_for(model, params, device, True, "auto")
+    for r in serve_requests(model.cfg.vocab, SERVE["max_seqs"]):
+        eng.sched.submit(r)
+    eng.step()  # admits and prefills all 8, then decodes once
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return dict(phase="serve_profile", decode_steps=n_steps,
+                wall_s_per_step_profiled=wall / n_steps,
+                **device_summary(prof, PORT_SERVE_KERNELS, n_steps, "step"))
+
+
+def serve_kernel_cases(eng, gen: torch.Generator) -> list:
+    """The serving path's kernels at its shapes, on the GPAC-on run's final
+    cache and placement state: paged_attention on layer 0's pages at the
+    full-width decode shape (bf16, and the same data in float32), hot_count
+    at 4 pages per block, gather_rows on the 8-byte placement rows and
+    topk_rows on one daemon's filter row."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    cfg, pcfg = eng.model.cfg, eng.pcfg
+    dev = eng.device
+    B, KVH, G, hd = SERVE["max_seqs"], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    kp = eng.cache["layers"]["layer0"]["k_pages"][0]
+    vp = eng.cache["layers"]["layer0"]["v_pages"][0]
+    btab, lens = eng.cache["btab"], eng.cache["lens"] + 1
+    pps, page = btab.shape[1], cfg.page_size
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((B, KVH, G, hd), generator=gen, device=dev).to(dtype)
+        k, v = kp.to(dtype), vp.to(dtype)
+        # the yardstick reads K/V gathered into contiguous rows beforehand
+        bidx = torch.arange(B, device=dev)[:, None]
+        safe = btab.clamp(0, k.shape[2] - 1).long()
+        kg = k[bidx, :, safe].transpose(1, 2).reshape(B, KVH, pps * page, hd).contiguous()
+        vg = v[bidx, :, safe].transpose(1, 2).reshape(B, KVH, pps * page, hd).contiguous()
+        mask = (torch.arange(pps * page, device=dev) < lens[:, None])[:, None, None, :]
+        qs = q.reshape(B, KVH * G, 1, hd)
+        n_tok = int(lens.clamp(0, pps * page).sum())
+        row = hd * q.element_size()
+        nbytes = 2 * n_tok * KVH * row + 2 * _nbytes(q) + _nbytes(btab, lens)
+        cases.append((
+            "paged_attention", f"decode {str(dtype)[6:]} B={B} KVH={KVH} G={G} hd={hd} "
+            f"page={page} pps={pps} len={int(lens.min())}-{int(lens.max())}",
+            (q, k, v, btab, lens),
+            lambda qs=qs, kg=kg, vg=vg, mask=mask: sdpa(qs, kg, vg, attn_mask=mask,
+                                                        enable_gqa=True),
+            nbytes, 4 * G * hd * n_tok * KVH, SERVE_TOL[dtype]))
+    st = eng.pstate
+    hot = telemetry.hot_mask(pcfg, st, "ipt")
+    hot_gpa = torch.where(st.rmap >= 0, hot[st.rmap.clamp(min=0)], False)
+    hp = pcfg.hp_ratio
+    score = torch.where(hot, pfilter._hotness_score(st), -1)[None]
+    k_top = 2 * hp  # the engine's max_batches (2) x hp_ratio
+    near_rows = st.near_pool.view(-1, pcfg.base_elems)
+    ids = torch.randint(0, near_rows.shape[0], (1, hp), generator=gen, device=dev,
+                        dtype=torch.int32)
+    cases += [
+        ("hot_count", f"serve placement hp_ratio={hp}", (hot_gpa, hp),
+         lambda: hot_gpa.view(-1, hp).sum(dim=1, dtype=torch.int32),
+         _nbytes(hot_gpa) + 4 * pcfg.n_gpa_hp, hot_gpa.numel(), None),
+        ("gather_rows", f"serve placement rows of {near_rows.shape[1] * 4} bytes",
+         (near_rows, ids), lambda: torch.index_select(near_rows, 0, ids.view(-1)),
+         2 * hp * near_rows.shape[1] * 4 + _nbytes(ids), 0, None),
+        ("topk_rows", f"serve filter rows=1 width={score.shape[1]} k={k_top}",
+         (score, k_top), lambda: torch.topk(score, k_top, dim=1),
+         _nbytes(score) + 8 * k_top, score.numel(), None),
+    ]
+    return cases
 
 
 def main() -> None:
@@ -449,7 +713,7 @@ def main() -> None:
               n_near=spec.cfg.n_near, trace_shape=list(trace.shape)))
     gen = torch.Generator(device=device).manual_seed(0)
     trace0 = torch.from_numpy(trace[:, 0]).to(device)
-    kernel_rows = kernels_phase(spec, state, trace0, gen)
+    kernel_rows = kernels_phase(kernel_cases(spec, state, trace0, gen), device, "engine")
     del state, trace0
     torch.cuda.empty_cache()
 
@@ -460,11 +724,23 @@ def main() -> None:
         runs.append(engine_phase(spec, trace, policy, n_w, device))
         emit(runs[-1])
         torch.cuda.empty_cache()
-    main_launches = runs[-1]["launches"]  # the main path: memtierd, 16 windows
+    main_launches = runs[-1]["launches"]  # the engine's main path: memtierd, 16 windows
     emit(profile_phase(spec, trace, device))
     for row in kernel_rows:
         row["launches"] = main_launches[row["name"]]
-    emit({"kernels": kernel_rows})
+    del spec, trace, runs
+    torch.cuda.empty_cache()
+
+    model, params = serve_model(device)
+    serve_line, serve_eng, serve_launches = serve_phase(model, params, device)
+    emit(serve_line)
+    serve_rows = kernels_phase(serve_kernel_cases(serve_eng, gen), device, "serve")
+    for row in serve_rows:
+        row["launches"] = serve_launches[row["name"]]
+    del serve_eng
+    torch.cuda.empty_cache()
+    emit(serve_profile_phase(model, params, device))
+    emit({"kernels": kernel_rows + serve_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

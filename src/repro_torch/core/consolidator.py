@@ -122,6 +122,17 @@ def consolidate_pages(
                                 kernel_backend)
 
 
+def consolidate_batches(
+    cfg: GpacConfig, state: TieredState, batches: torch.Tensor,
+    hp_range: tuple | None = None, kernel_backend: str = "auto",
+) -> TieredState:
+    """Algorithm 1 once per batch row, in row order (the paper's "multiple
+    invocations are required" loop)."""
+    for row in batches:
+        state = consolidate_pages(cfg, state, row, hp_range, kernel_backend)
+    return state
+
+
 def _alloc_regions_ragged(
     cfg: GpacConfig, rmap: torch.Tensor, hp_pad_idx: torch.Tensor,
 ) -> torch.Tensor:

@@ -2,9 +2,12 @@
 
 A hot base page is a consolidation candidate iff the huge page it occupies
 holds fewer than CL hot subpages and is not a region consolidated within the
-cooldown. The batched multi-tenant form ranks every guest's candidates with
-one row-wise top-k (the topk_rows kernel) over the padded
-``[n_guests, max_logical]`` score matrix built from the segment tables.
+cooldown. :func:`select_batches` serves one daemon (the serving engine runs
+one per sequence); the batched multi-tenant form ranks every guest's
+candidates with one row-wise top-k over the padded
+``[n_guests, max_logical]`` score matrix built from the segment tables. Both
+rank through the topk_rows kernel, whose ties go to the lowest index as
+``lax.top_k``'s do.
 """
 from __future__ import annotations
 
@@ -37,6 +40,31 @@ def candidate_mask(
     if allow is not None:
         out = out & allow
     return out
+
+
+def select_batches(
+    cfg: GpacConfig,
+    state: TieredState,
+    hot: torch.Tensor,
+    max_batches: int,
+    cl: int | None = None,
+    allow: torch.Tensor | None = None,
+    kernel_backend: str = "auto",
+):
+    """Up to ``max_batches * hp_ratio`` candidates, hottest first, as
+    ``(int32[max_batches, hp_ratio] ids padded with -1, int32[max_batches]
+    counts)``. The ranking is one row of the topk_rows kernel: most scores
+    tie at -1, and ``torch.topk`` would not break those ties by index."""
+    cand = candidate_mask(cfg, state, hot, cl, allow, kernel_backend)
+    score = torch.where(cand, _hotness_score(state), -1)
+    k = min(max_batches * cfg.hp_ratio, cfg.n_logical)
+    vals, top_ids = kernels.dispatch("topk_rows", kernel_backend, score[None], k)
+    ids = torch.where(vals[0] >= 0, top_ids[0], -1)
+    pad = max_batches * cfg.hp_ratio - k
+    if pad:
+        ids = torch.cat([ids, torch.full((pad,), -1, dtype=torch.int32, device=ids.device)])
+    batches = ids.view(max_batches, cfg.hp_ratio)
+    return batches, (batches >= 0).sum(dim=1, dtype=torch.int32)
 
 
 def _hotness_score(state: TieredState) -> torch.Tensor:

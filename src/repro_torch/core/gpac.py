@@ -1,11 +1,30 @@
 """GPAC orchestration, paper Fig. 5: telemetry -> filter -> consolidate
-(port of the batched passes of ``repro.core.gpac``)."""
+(port of ``repro.core.gpac``: one daemon's pass and the batched passes)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import consolidator, filter as pfilter, telemetry
 from repro_torch.core.types import GpacConfig, TieredState
+
+
+def gpac_maintenance(
+    cfg: GpacConfig,
+    state: TieredState,
+    backend: str = "ipt",
+    max_batches: int = 8,
+    cl: int | None = None,
+    allow: torch.Tensor | None = None,
+    hp_range: tuple | None = None,
+    kernel_backend: str = "auto",
+) -> TieredState:
+    """One guest daemon's pass: classify hotness, filter scattered hot pages,
+    consolidate them batch by batch. ``allow`` / ``hp_range`` confine it to
+    one guest's logical pages and GPA segment."""
+    hot = telemetry.hot_mask(cfg, state, backend)
+    batches, _ = pfilter.select_batches(
+        cfg, state, hot, max_batches, cl, allow, kernel_backend)
+    return consolidator.consolidate_batches(cfg, state, batches, hp_range, kernel_backend)
 
 
 def gpac_maintenance_ragged(

@@ -8,6 +8,7 @@ from repro_torch.kernels import registry  # noqa: F401
 from repro_torch.kernels import (  # noqa: F401  (registration side effects)
     histogram,
     hotness_scan,
+    paged_attention,
     tiered_lookup,
     topk,
 )

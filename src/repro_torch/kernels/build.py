@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of every entry point: name -> argument types (all return int)
 SIGNATURES = {
     "rt_bincount": (_P, _P, _L, _I, _P, _P),
@@ -36,6 +36,8 @@ SIGNATURES = {
     "rt_topk_rows": (_P, _I, _L, _I, _P, _P, _P),
     "rt_topk_max_k": (),
     "rt_gather_rows": (_P, _L, _L, _P, _L, _P, _P),
+    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,0 +1,286 @@
+"""Continuous-batching serving engine over the GPAC-tiered paged KV cache
+(port of ``repro.serve.engine``).
+
+The paper's full loop against a real model:
+
+  * the model decodes through its **block table** (the GVA->GPA analogue)
+    and never sees where a page lies;
+  * a placement manager (one ``TieredState`` whose logical pages are the
+    model's KV page slots) plays guest daemon and host: per-page attention
+    mass is the telemetry, GPAC consolidates hot pages into dense tier
+    blocks within each sequence's pool segment, and a host policy places
+    blocks near or far;
+  * consolidation is applied physically to the model cache (pages copied,
+    block table rewritten), so generation must not change.
+
+The near/far split is bookkeeping (metrics). The attention-mass probe uses
+layer 0's projections.
+
+In place, where the reference rebuilds arrays: page moves, prefill's copy
+into a slot and every decode step write the cache's tensors; the placement
+state is consumed by the core functions, as everywhere in the port. As in
+the reference, the host reads the placement (``gpt``) back at every page
+sync, and the logits at every step.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import GpacConfig, gpac, init_state, telemetry, tiering
+from repro_torch.core import address_space as asp
+from repro_torch.core import metrics as core_metrics
+from repro_torch.kernels import registry as kernels_registry
+from repro_torch.kernels import runtime
+from repro_torch.models import layers as L
+from repro_torch.models.registry import Model
+from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_seqs: int = 4
+    max_seq_len: int = 256
+    pages_per_block: int = 4  # tier-block granule (hp_ratio)
+    near_fraction: float = 0.4
+    gpa_slack: float = 0.5
+    sched: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+
+
+def _layer0(tree: dict) -> dict:
+    """Group 0's slice of a stacked tree."""
+    return {k: _layer0(v) if isinstance(v, dict) else v[0] for k, v in tree.items()}
+
+
+class Engine:
+    """``device``: CUDA unless named (the params must lie there);
+    ``kernel_backend``: the kernel registry knob, ``"auto"`` (the kernels on
+    the card) or ``"torch"`` (their plain versions), passed to every
+    dispatch."""
+
+    def __init__(self, model: Model, params: dict, ecfg: EngineConfig, device=None,
+                 kernel_backend: str = "auto"):
+        self.device = runtime.resolve_device(device)
+        self.kernel_backend = kernels_registry.resolve_backend(kernel_backend)
+        self.model = model
+        self.params = params
+        self.ecfg = ecfg
+        self.sched = Scheduler(dataclasses.replace(ecfg.sched, max_seqs=ecfg.max_seqs))
+        self.page = model.cfg.page_size
+        # ---- placement manager: logical page-slot space over all seqs -----
+        # The physical pool covers each sequence's whole GPA segment (logical
+        # pages + slack blocks): consolidation allocates fresh regions there.
+        B = ecfg.max_seqs
+        pps = -(-ecfg.max_seq_len // self.page) + 8  # logical page slots/seq
+        per_seq_hp = -(-pps // ecfg.pages_per_block)
+        slack_hp = max(1, int(per_seq_hp * ecfg.gpa_slack))
+        self.seq_hp = per_seq_hp + slack_hp  # gpa blocks per seq segment
+        self.n_pool = pps
+        self.n_phys = self.seq_hp * ecfg.pages_per_block  # pages per seq pool
+        self.cache = model.init_cache(B, ecfg.max_seq_len, n_pool=self.n_phys,
+                                      device=self.device)
+        n_hp = B * self.seq_hp
+        self.pcfg = GpacConfig(
+            n_logical=B * pps,
+            hp_ratio=ecfg.pages_per_block,
+            n_gpa_hp=n_hp,
+            n_near=min(max(1, int(ecfg.near_fraction * n_hp)), n_hp - 1),
+            base_elems=2,  # placement bookkeeping only (KV lives in the cache)
+            cl=max(2, ecfg.pages_per_block // 2 + 1),  # CL 1 never matches
+            ipt_min_hits=1,
+        )
+        # identity layout per segment: logical slot (b, s) -> seq b's segment
+        gpt = np.full((self.pcfg.n_logical,), -1, np.int64)
+        rmap = np.full((self.pcfg.n_gpa,), -1, np.int64)
+        for b in range(B):
+            gpa = (b * self.seq_hp * self.pcfg.hp_ratio) + np.arange(pps)
+            gpt[b * pps:(b + 1) * pps] = gpa
+            rmap[gpa] = b * pps + np.arange(pps)
+        st = init_state(self.pcfg, device=self.device)
+        self.pstate = dataclasses.replace(st, gpt=self._t(gpt, torch.int32),
+                                          rmap=self._t(rmap, torch.int32))
+        self._sync_btab()
+        self.decode_fn = lambda p, c, t: model.decode(p, c, t, self.kernel_backend)
+
+    def _t(self, a: np.ndarray, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=self.device, dtype=dtype)
+
+    # ------------------------------------------------------------------
+    # placement <-> model-cache coherence
+    # ------------------------------------------------------------------
+    def _model_btab_from_gpt(self) -> np.ndarray:
+        """gpt (B*pps,) global gpa -> per-seq physical page index."""
+        B, pps = self.ecfg.max_seqs, self.n_pool
+        gpt = self.pstate.gpt.cpu().numpy().reshape(B, pps)
+        seg = (np.arange(B) * self.seq_hp * self.pcfg.hp_ratio)[:, None]
+        return (gpt - seg).astype(np.int32)
+
+    def _sync_btab(self):
+        self.cache["btab"] = self._t(self._model_btab_from_gpt(), torch.int32)
+
+    def _apply_page_moves(self, old_btab: np.ndarray, new_btab: np.ndarray):
+        """Copy moved pages in the model cache, in place (Algorithm 1's
+        memcpy at page granularity, on the model's own tensors)."""
+        moved = old_btab != new_btab
+        if not moved.any():
+            return
+        b_idx, s_idx = np.nonzero(moved)
+        b_t = self._t(b_idx, torch.long)
+        src = self._t(old_btab[b_idx, s_idx], torch.long)
+        dst = self._t(new_btab[b_idx, s_idx], torch.long)
+        for lc in self.cache["layers"].values():
+            for key in ("k_pages", "v_pages"):
+                arr = lc[key]  # (G, B, KVH, n_pool, page, hd)
+                # advanced indices around a slice go first:
+                # (n_moved, G, KVH, page, hd); src and dst are disjoint
+                arr[:, b_t, :, dst] = arr[:, b_t, :, src]
+
+    def maintenance(self):
+        """One GPAC + tier window over the placement state, applied to the
+        model cache."""
+        old_btab = self._model_btab_from_gpt()
+        if self.sched.cfg.use_gpac:
+            B, pps = self.ecfg.max_seqs, self.n_pool
+            logical = torch.arange(self.pcfg.n_logical, device=self.device)
+            for b in range(B):
+                allow = (logical >= b * pps) & (logical < (b + 1) * pps)
+                hp_lo = b * self.seq_hp
+                self.pstate = gpac.gpac_maintenance(
+                    self.pcfg, self.pstate, "ipt", 2, allow=allow,
+                    hp_range=(hp_lo, hp_lo + self.seq_hp),
+                    kernel_backend=self.kernel_backend)
+        self.pstate = tiering.tick(
+            self.pcfg, self.pstate, self.sched.cfg.tier_policy, budget=32)
+        self.pstate = telemetry.end_window(self.pcfg, self.pstate)
+        new_btab = self._model_btab_from_gpt()
+        self._apply_page_moves(old_btab, new_btab)
+        self._sync_btab()
+
+    # ------------------------------------------------------------------
+    # telemetry: per-page attention mass (layer-0 probe)
+    # ------------------------------------------------------------------
+    def _attention_mass(self, tokens: torch.Tensor) -> np.ndarray:
+        """float32 (B, pps): each logical page's share of layer 0's
+        attention for the next token, averaged over heads."""
+        cfg = self.model.cfg
+        j = cfg.attn_layers[0] % cfg.group_size
+        lp = _layer0(self.params["groups"])[f"layer{j}"]
+        k = self.cache["layers"][f"layer{j}"]["k_pages"][0]  # (B, KVH, n_pool, page, hd)
+        lens = self.cache["lens"]
+        h = L.embed(cfg, self.params["embed"], tokens)
+        x = L.apply_norm(cfg, lp["norm1"], h)
+        q, _, _ = L.qkv(cfg, lp["attn"], x, lens[:, None], rope=not cfg.encdec)
+        B = tokens.shape[0]
+        KVH, hd, page = cfg.n_kv_heads, cfg.hd, cfg.page_size
+        btab = self.cache["btab"].long()
+        bidx = torch.arange(B, device=self.device)[:, None]
+        k = k[bidx, :, btab].transpose(1, 2)  # logical order (B, KVH, pps, page, hd)
+        kf = k.reshape(B, KVH, self.n_pool * page, hd)
+        qh = q.reshape(B, KVH, cfg.n_heads // KVH, hd)
+        s = torch.einsum("bkgd,bksd->bkgs", qh.float(), kf.float()) * (hd ** -0.5)
+        pos = torch.arange(self.n_pool * page, device=self.device)
+        s = torch.where(pos <= lens.view(B, 1, 1, 1), s, float("-inf"))
+        pr = torch.softmax(s, dim=-1)
+        pr = torch.where(torch.isfinite(pr), pr, 0.0)
+        mass = pr.mean(dim=(1, 2)).reshape(B, self.n_pool, page).sum(-1)
+        return mass.cpu().numpy()
+
+    def _record_mass(self, mass: np.ndarray, quantum: float = 0.02):
+        B, pps = mass.shape
+        counts = np.minimum((mass / quantum).astype(np.int64), 1 << 20)
+        slots = np.arange(B * pps).reshape(B, pps)
+        keep = counts > 0
+        if not keep.any():
+            return
+        self.pstate = asp.record_accesses(
+            self.pcfg, self.pstate, self._t(slots[keep], torch.int32),
+            self._t(counts[keep], torch.int32), kernel_backend=self.kernel_backend)
+
+    # ------------------------------------------------------------------
+    # request lifecycle
+    # ------------------------------------------------------------------
+    def _reset_slot_placement(self, b: int):
+        """Guest-reboot slot b: identity gpt over its segment, telemetry
+        cleared (prefill writes pages at identity physical positions)."""
+        pps, hp = self.n_pool, self.pcfg.hp_ratio
+        seg_page0 = b * self.seq_hp * hp
+        st = self.pstate
+        gpt = st.gpt.cpu().numpy().copy()
+        rmap = st.rmap.cpu().numpy().copy()
+        counts = st.guest_counts.cpu().numpy().copy()
+        hist = st.ipt_hist.cpu().numpy().copy()
+        repoch = st.region_epoch.cpu().numpy().copy()
+        rmap[seg_page0:seg_page0 + self.seq_hp * hp] = -1
+        gpt[b * pps:(b + 1) * pps] = seg_page0 + np.arange(pps)
+        rmap[seg_page0:seg_page0 + pps] = b * pps + np.arange(pps)
+        counts[b * pps:(b + 1) * pps] = 0
+        hist[b * pps:(b + 1) * pps] = 0
+        repoch[b * self.seq_hp:(b + 1) * self.seq_hp] = -1
+        self.pstate = dataclasses.replace(
+            st, gpt=self._t(gpt, torch.int32), rmap=self._t(rmap, torch.int32),
+            guest_counts=self._t(counts, torch.int32),
+            ipt_hist=self._t(hist, torch.uint8),
+            region_epoch=self._t(repoch, torch.int32))
+        self._sync_btab()
+
+    def _prefill_into_slot(self, req: Request):
+        self._reset_slot_placement(req.seq_slot)
+        toks = torch.tensor(req.prompt, dtype=torch.int32, device=self.device)[None]
+        logits, rcache = self.model.prefill(
+            self.params, {"tokens": toks}, max_seq=self.ecfg.max_seq_len,
+            n_pool=self.n_phys)
+        b = req.seq_slot
+        for name, lc in self.cache["layers"].items():
+            for key, dst in lc.items():
+                dst[:, b] = rcache["layers"][name][key][:, 0]
+        self.cache["lens"][b] = len(req.prompt)
+        req.out.append(int(torch.argmax(logits[0])))
+
+    def step(self) -> dict:
+        """One engine iteration: admit -> prefill -> batched decode ->
+        telemetry -> cadenced maintenance."""
+        for req in self.sched.admit(self.ecfg.max_seq_len - 1):
+            self._prefill_into_slot(req)
+        if not self.sched.running:
+            return {}
+        tokens = np.zeros((self.ecfg.max_seqs, 1), np.int32)
+        for b, req in self.sched.running.items():
+            tokens[b, 0] = req.out[-1] if req.out else 0
+        tokens = self._t(tokens, torch.int32)
+        mass = self._attention_mass(tokens)
+        mass[[b for b in range(self.ecfg.max_seqs)
+              if b not in self.sched.running]] = 0.0  # idle slots are silent
+        logits, self.cache = self.decode_fn(self.params, self.cache, tokens)
+        self._record_mass(mass)
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        for b, req in list(self.sched.running.items()):
+            req.out.append(int(nxt[b]))
+            if len(req.out) >= req.max_new:
+                self.sched.finish(req)
+        if self.sched.should_maintain():
+            self.maintenance()
+        return self.stats()
+
+    def run(self, max_steps: int = 10_000) -> list:
+        hist = []
+        steps = 0
+        while self.sched.has_work and steps < max_steps:
+            hist.append(self.step())
+            steps += 1
+        return hist
+
+    def stats(self) -> dict:
+        return core_metrics.snapshot(self.pcfg, self.pstate)
+
+
+class TieringService:
+    """The churn engine's serving front (tenants on guest lanes). Not ported:
+    it runs over the churn stepper and on-device trace synthesis."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "TieringService is not ported to PyTorch yet: it runs over the churn "
+            "engine (ROADMAP queue 1, item 11) and on-device trace synthesis "
+            "(item 10)")

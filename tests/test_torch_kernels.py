@@ -3,7 +3,8 @@ package's Pallas kernel (interpret mode) and its ``xla`` reference, bit for
 bit with dtypes, on the same numpy inputs; and the port's kernel registry.
 
 The CUDA kernels themselves run only on the card: the ``cuda``-marked test
-holds each to its plain version there (``python -m pytest -m cuda
+holds each to its plain version there (bit for bit, and the paged-attention
+kernel within float tolerance) (``python -m pytest -m cuda
 tests/test_torch_kernels.py`` on a machine with the card, which needs no
 JAX), and ``chip_smoke.py`` does the same at full width. Here a CPU tensor
 must take the plain version and leave the launch counts alone.
@@ -127,7 +128,8 @@ def test_kernel_wrappers_reject_bad_inputs():
 
 
 def test_registry_names_duplicates_and_unknowns():
-    assert registry.kernel_names() == ("bincount", "gather_rows", "hot_count", "topk_rows")
+    assert registry.kernel_names() == ("bincount", "gather_rows", "hot_count",
+                                       "paged_attention", "topk_rows")
     spec = registry.get_kernel("bincount")
     with pytest.raises(ValueError, match="already registered"):
         registry.register_kernel("bincount", spec.kernel, spec.plain)
@@ -175,25 +177,59 @@ def _card_cases(r):
     ]
 
 
+def _paged_cases(r):
+    """paged_attention edge cases for the card, in float32 and bf16: G = 7,
+    a len of 0, lens off the page grid and past the table's capacity, table
+    entries out of range on both sides, several chunks and splits, and
+    G = 16 with hd = 256 (over 48 KB of shared memory)."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, KVH, G, hd, n_pool, page, pps in [(4, 2, 7, 64, 40, 16, 36),
+                                                 (3, 1, 16, 256, 9, 8, 12),
+                                                 (2, 4, 1, 128, 30, 32, 25)]:
+            pages = lambda: torch.from_numpy(  # noqa: E731
+                r.standard_normal((B, KVH, n_pool, page, hd)).astype(np.float32)).to(dtype)
+            q = torch.from_numpy(r.standard_normal((B, KVH, G, hd)).astype(np.float32)).to(dtype)
+            btab = r.integers(-3, n_pool + 3, (B, pps)).astype(np.int32)
+            lens = r.integers(1, pps * page + 40, B).astype(np.int32)
+            lens[0] = 0
+            cases.append(("paged_attention", (q, pages(), pages(), btab, lens)))
+    return cases
+
+
+# paged_attention against its plain version: the same float32 sums in
+# another order. Float32 outputs within 1e-5; bf16 outputs within one bf16
+# rounding step (2^-7 relative), where the two float32 results straddle it.
+PAGED_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=1e-6, rtol=2 ** -7)}
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     """On a CUDA card every wrapper launches its kernel, which must equal its
-    plain version bit for bit."""
+    plain version bit for bit (paged_attention: within PAGED_TOL)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
     dev = torch.device("cuda")
     registry.reset_launch_counts()
-    cases = _card_cases(rng())
+    r = rng()
+    cases = _card_cases(r) + _paged_cases(r)
     for name, args in cases:
-        targs = [torch.from_numpy(np.array(a)).to(dev) if isinstance(a, np.ndarray) else a
-                 for a in args]
+        targs = [(torch.from_numpy(np.array(a)) if isinstance(a, np.ndarray) else a).to(dev)
+                 if hasattr(a, "shape") else a for a in args]
         spec = registry.get_kernel(name)
         got, want = spec.kernel(*targs), spec.plain(*targs)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        shapes = [tuple(a.shape) for a in targs if hasattr(a, "shape")]
         for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w), (name, [a.shape for a in targs
-                                                                     if hasattr(a, "shape")])
+            assert g.dtype == w.dtype and g.shape == w.shape, (name, shapes)
+            if name == "paged_attention":
+                assert torch.isfinite(g).all() and not g[0].any(), shapes  # len 0 -> 0
+                torch.testing.assert_close(g.float(), w.float(), **PAGED_TOL[g.dtype],
+                                           msg=lambda m: f"{shapes} {g.dtype}: {m}")
+            else:
+                assert torch.equal(g, w), (name, shapes)
     counts = registry.launch_counts()
     assert counts == {n: sum(c == n for c, _ in cases) for n in counts}
