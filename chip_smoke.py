@@ -39,7 +39,26 @@ first use), then, printing one JSON line per phase:
    must be identical, GPAC must consolidate pages, and paged_attention must
    launch 24 times per decode step), then with ``kernel_backend="torch"``
    (the first decode step's logits must agree with the kernel run's within
-   SERVE_TOL); then four decode steps under torch.profiler.
+   SERVE_TOL); then four decode steps under torch.profiler;
+7. registry -- the kernel registry's public entry points, the path of the
+   kernels no model calls: ``consolidate_region`` and ``scatter_region``
+   (K5a/K5b) on one 512-slot region of the engine's far row space
+   (3,276,800 x 1,024 float32, 13.4 GB, filled as the engine phase fills
+   it; the last 64 slots -1, and one duplicate destination for the
+   scatter), ``gqa_attention`` (K7) at qwen2-0.5b's width (14 heads, 2 kv
+   heads, hd 64, causal) for B 1 and S 1,024 in bf16 and float32 and B 8
+   and S 2,048 in bf16, then every registry entry's example; the launch
+   counts are set to 0 before and read after, and every entry must have
+   launched. Each output is held to its plain version (K5 bit for bit, K7
+   within SERVE_TOL), and K5a, K5b and K7 get kernel rows as in phase 3;
+8. memory -- the tiered memory substrate at full width: a
+   TieredEmbeddingStore over qwen2-0.5b's tied 151,936 x 896 table
+   (float32, the serve phase's seeded params) through four rounds of a
+   Zipf batch of 8 x 1,024 tokens (record_batch, maintenance, then lookup,
+   which must equal table[ids] bit for bit and launch K4), and a
+   TieredKVCache of 8 slots of 2,048 tokens (append every group, a skewed
+   attention mass, two maintenance windows; read_groups must return what
+   was appended bit for bit); each with GPAC on and off.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero; so it does without a CUDA device, and outside a
@@ -66,12 +85,17 @@ from repro_torch.core import address_space as asp  # noqa: E402
 from repro_torch.core import engine, filter as pfilter, telemetry  # noqa: E402
 from repro_torch.data import traces  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
+from repro_torch.kernels.consolidate import consolidate_region, scatter_region  # noqa: E402
+from repro_torch.kernels.flash_attention import gqa_attention  # noqa: E402
+from repro_torch.memory.embedding import EmbedSpec, TieredEmbeddingStore  # noqa: E402
+from repro_torch.memory.kvcache import KVSpec, TieredKVCache  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve.scheduler import Request, SchedulerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA cores (the table's non-tensor rate)
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 
 # one Redis guest at the paper's size (Table 2: 12.5 GiB RSS in 4 KiB pages)
 N_LOGICAL = 3_276_800
@@ -94,7 +118,14 @@ KERNEL_SOURCES = {  # name -> (CUDA source, the Pallas kernel it replaces)
                     "src/repro/kernels/tiered_lookup/kernel.py:24"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention/kernel.py:94"),
+    "consolidate_region": ("src/repro_torch/csrc/consolidate.cu",
+                           "src/repro/kernels/consolidate/kernel.py:29"),
+    "scatter_region": ("src/repro_torch/csrc/consolidate.cu",
+                       "src/repro/kernels/consolidate/kernel.py:59"),
+    "gqa_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention/kernel.py:89"),
 }
+INPLACE = {"scatter_region": 0}  # kernel -> the argument it writes in place
 
 
 def emit(obj: dict) -> None:
@@ -260,14 +291,20 @@ def kernel_cases(spec, state, trace0: torch.Tensor, gen: torch.Generator) -> lis
 
 def kernels_phase(cases: list, device, path: str) -> list[dict]:
     """Hold every kernel to its plain version and time both. A case is
-    (name, case, args, library call, bytes, operations, tolerance); a
-    tolerance of None means bit for bit. Launches made here are not the main
-    path's: the counts are reset before it runs."""
+    (name, case, args, library call, bytes, operations, tolerance); the
+    operations are a count at FP32_OPS_PER_S or a (count, rate) pair, and a
+    tolerance of None means bit for bit. A kernel that writes an argument in
+    place (INPLACE) and its plain version each get their own copy of it.
+    Launches made here are not the main path's: the counts are reset before
+    it runs."""
     timer = Timer(device)
     rows = []
     for name, case, args, library, nbytes, ops, tol in cases:
         kspec = registry.get_kernel(name)
-        got, want = kspec.kernel(*args), kspec.plain(*args)
+        plain_args = list(args)
+        if name in INPLACE:
+            plain_args[INPLACE[name]] = args[INPLACE[name]].clone()
+        got, want = kspec.kernel(*args), kspec.plain(*plain_args)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -279,11 +316,13 @@ def kernels_phase(cases: list, device, path: str) -> list[dict]:
                 if g.dtype != w.dtype or not torch.isfinite(g).all():
                     raise AssertionError(f"{name} ({case}): wrong dtype or not finite")
                 torch.testing.assert_close(g.float(), w.float(), **tol)
-            err = max(err, float((g.double() - w.double()).abs().max()) if g.numel() else 0.0)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+            if tol is not None and g.numel():  # bit for bit: the error is 0
+                err = max(err, float((g.double() - w.double()).abs().max()))
+        n_ops, rate = ops if isinstance(ops, tuple) else (ops, FP32_OPS_PER_S)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / rate
         source, replaces = KERNEL_SOURCES[name]
         kern = timer(lambda: kspec.kernel(*args))
-        plain = timer(lambda: kspec.plain(*args))
+        plain = timer(lambda: kspec.plain(*plain_args))
         lib = timer(library)
         rows.append(dict(
             name=name, case=case, path=path, route="cuda", source=source,
@@ -701,6 +740,188 @@ def serve_kernel_cases(eng, gen: torch.Generator) -> list:
     return cases
 
 
+# --------------------------------------------------------------------------
+# 7. the kernel registry's entry points: K5a, K5b and K7 at full width
+# --------------------------------------------------------------------------
+PADDED_SLOTS = 64
+FA_CASES = (("a", 1, 1024, torch.bfloat16), ("b", 1, 1024, torch.float32),
+            ("c", 8, 2048, torch.bfloat16))
+OPS_PER_S = {torch.bfloat16: BF16_OPS_PER_S, torch.float32: FP32_OPS_PER_S}
+ENTRY_POINTS = {"consolidate_region": consolidate_region, "scatter_region": scatter_region,
+                "gqa_attention": gqa_attention}  # the public calls of the slice's path
+
+
+def registry_cases(spec, device, gen, model_cfg) -> list:
+    """K5a/K5b on one region of the engine's far row space, filled as the
+    engine phase fills it, and K7 at qwen2-0.5b's width."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    cfg = spec.cfg
+    far = filled_state(spec, device).far_pool.view(-1, cfg.base_elems)  # the near pool goes
+    hp, row_bytes = cfg.hp_ratio, cfg.base_elems * far.element_size()
+    ids = torch.randperm(far.shape[0], generator=gen, device=device)[:hp].to(torch.int32)
+    ids[hp - PADDED_SLOTS:] = -1
+    sids = ids.clone()
+    sids[hp - PADDED_SLOTS - 1] = sids[0]  # one duplicate destination: the later slot wins
+    region = torch.randn((hp, cfg.base_elems), generator=gen, device=device)
+    valid, svalid = ids >= 0, sids >= 0
+    safe, pad = ids.clamp(min=0), ~valid[:, None]
+    n_valid, n_dest = int(valid.sum()), int(sids[svalid].unique().numel())
+    lib_ids, lib_region = sids[svalid].long(), region[svalid]
+    cases = [
+        ("consolidate_region", f"far rows {far.shape[0]} x {far.shape[1]} f32, region {hp} "
+         f"slots, {PADDED_SLOTS} padded", (far, ids),
+         lambda: torch.index_select(far, 0, safe).masked_fill_(pad, 0),
+         (n_valid + hp) * row_bytes + _nbytes(ids), 0, None),
+        ("scatter_region", f"far rows {far.shape[0]} x {far.shape[1]} f32, region {hp} "
+         f"slots, {PADDED_SLOTS} padded, 1 duplicate", (far, region, sids),
+         lambda: far.index_copy_(0, lib_ids, lib_region),
+         2 * n_dest * row_bytes + _nbytes(sids), 0, None),
+    ]
+    H, KVH, hd = model_cfg.n_heads, model_cfg.n_kv_heads, model_cfg.hd
+    for label, B, S, dtype in FA_CASES:
+        q = torch.randn((B, H, S, hd), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((B, KVH, S, hd), generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        cases.append((
+            "gqa_attention", f"({label}) {str(dtype)[6:]} B={B} H={H} KVH={KVH} S={S} "
+            f"hd={hd} causal", (q, k, v),
+            lambda q=q, k=k, v=v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            2 * _nbytes(q) + _nbytes(k, v), (4 * B * H * hd * S * (S + 1) // 2, OPS_PER_S[dtype]),
+            SERVE_TOL[dtype]))
+    return cases
+
+
+def registry_phase(cases: list, device) -> tuple[dict, dict]:
+    """The slice's path: each full-width case through its public entry
+    point, then every registry entry's example through ``dispatch``, with
+    the launch counts set to 0 just before and read just after. Then each
+    example's output is held to its plain version on a fresh copy of the
+    example (bit for bit; the attention entries within float32 SERVE_TOL)."""
+    registry.reset_launch_counts()
+    outs = {}
+    for name, case, args, *_ in cases:
+        outs[case] = ENTRY_POINTS[name](*args)
+    walk = {}
+    for kspec in registry.all_kernels():
+        args, kw = kspec.example(device)
+        walk[kspec.name] = registry.dispatch(kspec.name, "auto", *args, **kw)
+    torch.cuda.synchronize()
+    counts = registry.launch_counts()
+    missing = [n for n in registry.kernel_names() if counts[n] == 0]
+    if missing or len(walk) != 9:
+        raise AssertionError(f"registry: entries never launched: {missing} (walked {list(walk)})")
+    for case, out in outs.items():
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"registry: non-finite output in {case}")
+    errs = {}
+    for kspec in registry.all_kernels():
+        args, kw = kspec.example(device)
+        want = kspec.plain(*args, **kw)
+        got = walk[kspec.name]
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        errs[kspec.name] = 0.0
+        for g, w in zip(got, want):
+            if kspec.name in ("gqa_attention", "paged_attention"):
+                torch.testing.assert_close(g, w, **SERVE_TOL[torch.float32])
+                errs[kspec.name] = max(errs[kspec.name], float((g - w).abs().max()))
+            elif not same_bits(g, w):
+                raise AssertionError(f"registry walk: {kspec.name} differs from its plain version")
+    return dict(phase="registry", launches=counts, walk_max_abs_err=errs,
+                walked=sorted(walk), cases=[c[1] for c in cases]), counts
+
+
+# --------------------------------------------------------------------------
+# 8. the tiered memory substrate at full width
+# --------------------------------------------------------------------------
+EMBED_ROUNDS, EMBED_BATCH = 4, (8, 1024)
+KV_SLOTS, KV_LEN, KV_WINDOWS = 8, 2048, 2
+
+
+def embedding_run(cfg, table, batches, device, use_gpac: bool) -> dict:
+    """Four rounds of record_batch, maintenance and a lookup that must equal
+    table[ids] bit for bit, each lookup through K4."""
+    store = TieredEmbeddingStore(EmbedSpec(arch=cfg), table, device=device)
+    registry.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lookup_s = []
+    for b in batches:
+        store.record_batch(b)
+        store.maintenance(use_gpac=use_gpac)
+        ids = torch.from_numpy(b.astype(np.int32)).to(device)
+        before = registry.launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = store.lookup(ids)
+        torch.cuda.synchronize()
+        lookup_s.append(time.perf_counter() - t1)
+        after = registry.launch_counts()
+        if not (after["gather_rows"] > before["gather_rows"]
+                and after["tiered_lookup"] > before["tiered_lookup"]):
+            raise AssertionError("embedding lookup did not launch K4")
+        if not same_bits(got, table[ids.long()]):
+            raise AssertionError(f"embedding lookup differs from the table (gpac {use_gpac})")
+    wall = time.perf_counter() - t0
+    stats = {k: int(v) for k, v in store.state.stats.items()}
+    return dict(near_usage=store.near_usage(), hit_rate=store.hit_rate(), stats=stats,
+                launches=registry.launch_counts(), s_per_round=wall / len(batches),
+                lookup_s=lookup_s, pool_gb=(store.state.near_pool.numel()
+                                            + store.state.far_pool.numel()) * 4 / 1e9)
+
+
+def kvcache_run(cfg, device, gen, use_gpac: bool) -> dict:
+    """Append every slot's groups, record a skewed mass (one hot group per
+    tier block) over two maintenance windows, and read every group back."""
+    spec = KVSpec(arch=cfg, max_seqs=KV_SLOTS, max_seq_len=KV_LEN)
+    cache = TieredKVCache(spec, device=device)
+    shape = (spec.groups_per_seq, cfg.n_attn_layers, cfg.n_kv_heads, spec.group_tokens, cfg.hd)
+    registry.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kv = []
+    for seq in range(KV_SLOTS):
+        kv.append(tuple(torch.randn(shape, generator=gen, device=device) for _ in range(2)))
+        cache.append_groups(seq, *kv[-1])
+    groups = [cache.seq_groups(s) for s in range(KV_SLOTS)]
+    hot = np.concatenate([g[:: spec.hp_ratio] for g in groups])
+    for _ in range(KV_WINDOWS):
+        cache.record_attention_mass(hot, np.full(hot.shape, 0.9))
+        cache.maintenance(use_gpac=use_gpac)
+    for seq, (k, v) in enumerate(kv):
+        k2, v2 = cache.read_groups(groups[seq])
+        if not (same_bits(k2, k) and same_bits(v2, v)):
+            raise AssertionError(f"KV cache: slot {seq} reads back other values (gpac {use_gpac})")
+    torch.cuda.synchronize()
+    stats = cache.stats()
+    if use_gpac and stats["consolidated_pages"] == 0:
+        raise AssertionError(f"KV cache: GPAC consolidated nothing: {stats}")
+    return dict(n_logical=spec.n_logical, elems_per_group=spec.elems_per_group,
+                pool_gb=(cache.state.near_pool.numel() + cache.state.far_pool.numel()) * 4 / 1e9,
+                stats=stats, launches=registry.launch_counts(), wall_s=time.perf_counter() - t0)
+
+
+def memory_phase(model, params, device, gen) -> dict:
+    cfg = model.cfg
+    table = params["embed"]["tok"].float()
+    if tuple(table.shape) != (cfg.vocab, cfg.d_model):
+        raise AssertionError(f"unexpected embedding table {tuple(table.shape)}")
+    rng = np.random.default_rng(0)
+    batches = [np.minimum(rng.zipf(1.3, size=EMBED_BATCH) - 1, cfg.vocab - 1)
+               for _ in range(EMBED_ROUNDS)]
+    line = dict(phase="memory", table=list(table.shape), rounds=EMBED_ROUNDS,
+                batch=list(EMBED_BATCH), kv_slots=KV_SLOTS, kv_len=KV_LEN,
+                kv_windows=KV_WINDOWS)
+    for use_gpac in (True, False):
+        key = "gpac_on" if use_gpac else "gpac_off"
+        line[f"embedding_{key}"] = embedding_run(cfg, table, batches, device, use_gpac)
+        torch.cuda.empty_cache()
+        line[f"kvcache_{key}"] = kvcache_run(cfg, device, gen, use_gpac)
+        torch.cuda.empty_cache()
+    line.update(embedding_lookup_bit_exact=True, kvcache_read_back_bit_exact=True)
+    return line
+
+
 def main() -> None:
     device, _ = device_phase()
     build_phase()
@@ -728,7 +949,7 @@ def main() -> None:
     emit(profile_phase(spec, trace, device))
     for row in kernel_rows:
         row["launches"] = main_launches[row["name"]]
-    del spec, trace, runs
+    del trace, runs
     torch.cuda.empty_cache()
 
     model, params = serve_model(device)
@@ -740,7 +961,17 @@ def main() -> None:
     del serve_eng
     torch.cuda.empty_cache()
     emit(serve_profile_phase(model, params, device))
-    emit({"kernels": kernel_rows + serve_rows})
+
+    cases = registry_cases(spec, device, gen, model.cfg)
+    registry_line, registry_launches = registry_phase(cases, device)
+    emit(registry_line)
+    registry_rows = kernels_phase(cases, device, "registry")
+    for row in registry_rows:
+        row["launches"] = registry_launches[row["name"]]
+    del cases, spec
+    torch.cuda.empty_cache()
+    emit(memory_phase(model, params, device, gen))
+    emit({"kernels": kernel_rows + serve_rows + registry_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -80,6 +80,11 @@ class ArchConfig:
         return self.n_experts > 0
 
     @property
+    def e_pad(self) -> int:
+        """Expert-bank size after EP padding."""
+        return self.n_experts_padded or self.n_experts
+
+    @property
     def group_size(self) -> int:
         """Layers per stacked super-block."""
         if self.attn_period:
@@ -109,6 +114,10 @@ class ArchConfig:
     @property
     def attn_layers(self) -> list:
         return [i for i in range(self.n_layers) if self.layer_kind(i) == "attn"]
+
+    @property
+    def n_attn_layers(self) -> int:
+        return len(self.attn_layers)
 
     def param_count(self) -> int:
         """Parameters of a dense attention stack (what the port builds)."""

@@ -10,37 +10,25 @@
 // Design: the kernel never looks at the dtype. One block copies one output
 // row; with row_bytes a multiple of 16 and both pointers 16-byte aligned the
 // threads move 16-byte vectors (a 4 KiB row is one vector per thread of a
-// 256-thread block), otherwise bytes. An id is read once per block, wrapped
-// once if negative and clamped to [0, n_rows), as jnp's rows[ids] does, so
-// the kernel matches the reference on any input.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// 256-thread block), otherwise bytes (rows.cuh). An id is read once per
+// block, wrapped once if negative and clamped to [0, n_rows), as jnp's
+// rows[ids] does, so the kernel matches the reference on any input.
+#include "rows.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ long long clamp_row(int id, long long n_rows) {
   long long r = id < 0 ? id + n_rows : id;
   return r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
 }
 
-__global__ void gather_rows_vec16(const uint4* __restrict__ rows, long long n_rows,
-                                  long long row_vecs, const int* __restrict__ ids,
-                                  uint4* __restrict__ out) {
+template <typename U>
+__global__ void gather_rows_kernel(const U* __restrict__ rows, long long n_rows,
+                                   long long row_units, const int* __restrict__ ids,
+                                   U* __restrict__ out) {
   const long long j = blockIdx.x;
-  const uint4* src = rows + clamp_row(ids[j], n_rows) * row_vecs;
-  uint4* dst = out + j * row_vecs;
-  for (long long v = threadIdx.x; v < row_vecs; v += blockDim.x) dst[v] = src[v];
-}
-
-__global__ void gather_rows_bytes(const uint8_t* __restrict__ rows, long long n_rows,
-                                  long long row_bytes, const int* __restrict__ ids,
-                                  uint8_t* __restrict__ out) {
-  const long long j = blockIdx.x;
-  const uint8_t* src = rows + clamp_row(ids[j], n_rows) * row_bytes;
-  uint8_t* dst = out + j * row_bytes;
-  for (long long b = threadIdx.x; b < row_bytes; b += blockDim.x) dst[b] = src[b];
+  rows::copy_row(rows + clamp_row(ids[j], n_rows) * row_units, out + j * row_units,
+                 row_units);
 }
 
 }  // namespace
@@ -49,15 +37,13 @@ __global__ void gather_rows_bytes(const uint8_t* __restrict__ rows, long long n_
 extern "C" int rt_gather_rows(const void* rows, long long n_rows, long long row_bytes,
                               const int* ids, long long m, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool vec = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
-             reinterpret_cast<uintptr_t>(out) % 16 == 0;
   unsigned grid = static_cast<unsigned>(m);
-  if (vec) {
-    gather_rows_vec16<<<grid, kThreads, 0, s>>>(
+  if (rows::vec16(row_bytes, rows, out)) {
+    gather_rows_kernel<uint4><<<grid, rows::kThreads, 0, s>>>(
         static_cast<const uint4*>(rows), n_rows, row_bytes / 16, ids,
         static_cast<uint4*>(out));
   } else {
-    gather_rows_bytes<<<grid, kThreads, 0, s>>>(
+    gather_rows_kernel<uint8_t><<<grid, rows::kThreads, 0, s>>>(
         static_cast<const uint8_t*>(rows), n_rows, row_bytes, ids,
         static_cast<uint8_t*>(out));
   }

@@ -6,6 +6,8 @@ and builds nothing.
 """
 from repro_torch.kernels import registry  # noqa: F401
 from repro_torch.kernels import (  # noqa: F401  (registration side effects)
+    consolidate,
+    flash_attention,
     histogram,
     hotness_scan,
     paged_attention,

@@ -3,9 +3,10 @@
 Every ``src/repro_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
 (one process per source, all started together) and linked into one shared
 library with a plain C interface under ``build/repro_torch/<hash>/`` of the
-checkout. The hash covers the sources and the flags, so an edited source
-builds anew and an unchanged one is loaded as it is. Nothing is built when a
-module is imported: :func:`library` builds on its first call, which the
+checkout. The hash covers the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew
+and an unchanged one is loaded as it is. Nothing is built when a module is
+imported: :func:`library` builds on its first call, which the
 kernel wrappers make at their first launch on a CUDA tensor.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
@@ -38,6 +39,9 @@ SIGNATURES = {
     "rt_gather_rows": (_P, _L, _L, _P, _L, _P, _P),
     "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "rt_consolidate_gather": (_P, _L, _L, _P, _I, _P, _P),
+    "rt_consolidate_scatter": (_P, _L, _L, _P, _P, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -59,7 +63,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -3,6 +3,7 @@ registry entry (``csrc/histogram.cu``; port of
 ``repro/kernels/histogram``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, registry, runtime
@@ -47,6 +48,23 @@ def bincount(ids: torch.Tensor, weights: torch.Tensor, n_bins: int) -> torch.Ten
     return out
 
 
+def _oracle(ids, weights, n_bins):
+    out = np.zeros(n_bins, np.int64)
+    for i, w in zip(np.asarray(ids).reshape(-1), np.asarray(weights).reshape(-1)):
+        i = i + n_bins if i < 0 else i
+        if 0 <= i < n_bins:
+            out[i] += int(w)
+    return out.astype(np.int32)
+
+
+def _example(device):
+    rng = np.random.default_rng(0)
+    n_bins = 4096
+    ids = rng.integers(0, n_bins, size=16384).astype(np.int32)
+    w = rng.integers(0, 8, size=16384).astype(np.int32)
+    return (torch.from_numpy(ids).to(device), torch.from_numpy(w).to(device), n_bins), {}
+
+
 registry.register_kernel(
-    "bincount", kernel=bincount, plain=bincount_plain,
+    "bincount", kernel=bincount, plain=bincount_plain, oracle=_oracle, example=_example,
     description="weighted bincount (per-window access/host histograms)")

@@ -3,6 +3,7 @@ registry entry (``csrc/hotness_scan.cu``; port of
 ``repro/kernels/hotness_scan``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, registry, runtime
@@ -41,6 +42,17 @@ def hot_count(hot: torch.Tensor, hp_ratio: int) -> torch.Tensor:
     return out
 
 
+def _oracle(hot_gpa, hp_ratio):
+    x = np.asarray(hot_gpa).astype(np.int32)
+    return x.reshape(-1, hp_ratio).sum(axis=1).astype(np.int32)
+
+
+def _example(device):
+    rng = np.random.default_rng(0)
+    hot = rng.random(4096 * 32) < 0.1
+    return (torch.from_numpy(hot).to(device), 32), {}
+
+
 registry.register_kernel(
-    "hot_count", kernel=hot_count, plain=hot_count_plain,
+    "hot_count", kernel=hot_count, plain=hot_count_plain, oracle=_oracle, example=_example,
     description="per-huge-page hot-subpage count (scattered page filter)")

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, registry, runtime
@@ -119,6 +120,21 @@ def paged_attention(q, k_pages, v_pages, btab, lens):
     return out
 
 
+def _example(device):
+    """The reference entry's example draws, with its one global pool
+    (KVH, n_pages, page, hd) given to every sequence as its own pool, so
+    that the block table selects the same pages in both layouts."""
+    rng = np.random.default_rng(0)
+    B, KVH, G, n_pages, page, hd, pages_per_seq = 4, 2, 4, 64, 16, 64, 8
+    q = rng.standard_normal((B, KVH, G, hd)).astype(np.float32)
+    kp = rng.standard_normal((KVH, n_pages, page, hd)).astype(np.float32)
+    vp = rng.standard_normal((KVH, n_pages, page, hd)).astype(np.float32)
+    btab = rng.integers(0, n_pages, size=(B, pages_per_seq)).astype(np.int32)
+    lens = rng.integers(1, pages_per_seq * page, size=(B,)).astype(np.int32)
+    pools = [np.ascontiguousarray(np.broadcast_to(a, (B, *a.shape))) for a in (kp, vp)]
+    return tuple(torch.from_numpy(a).to(device) for a in (q, *pools, btab, lens)), {}
+
+
 registry.register_kernel(
-    "paged_attention", kernel=paged_attention, plain=paged_attention_plain,
+    "paged_attention", kernel=paged_attention, plain=paged_attention_plain, example=_example,
     description="GQA decode attention through the block table (paged KV cache)")

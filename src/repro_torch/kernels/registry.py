@@ -13,6 +13,11 @@ knob to :func:`dispatch` and never compare backend strings themselves:
 
 Each wrapper adds one to its launch count where it launches its kernel and
 nowhere else, so a run can show that it went through the kernels.
+
+An entry may carry an ``oracle`` (an independent numpy implementation, for
+the tests) and an ``example(device)`` that returns ``(args, kwargs)`` on that
+device, drawn from the same ``np.random.default_rng(0)`` numbers as the JAX
+entry's example, so that both registries see the same inputs.
 """
 from __future__ import annotations
 
@@ -25,11 +30,15 @@ BACKENDS = ("auto", "torch")
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
     """One registered kernel: ``kernel`` is the wrapper (launches on CUDA
-    tensors, runs ``plain`` on CPU tensors), ``plain`` the PyTorch version."""
+    tensors, runs ``plain`` on CPU tensors), ``plain`` the PyTorch version,
+    ``oracle`` (optional) a numpy version and ``example`` (optional) a
+    callable ``example(device) -> (args, kwargs)``."""
 
     name: str
     kernel: Callable
     plain: Callable
+    oracle: Callable | None = None
+    example: Callable | None = None
     description: str = ""
 
 
@@ -38,13 +47,15 @@ _LAUNCHES: dict[str, int] = {}
 
 
 def register_kernel(
-    name: str, kernel: Callable, plain: Callable, *, description: str = "",
+    name: str, kernel: Callable, plain: Callable, *,
+    oracle: Callable | None = None, example: Callable | None = None,
+    description: str = "",
 ) -> KernelSpec:
     """Register a kernel under a unique name; duplicates raise."""
     if name in _KERNELS:
         raise ValueError(f"kernel {name!r} already registered")
-    spec = KernelSpec(name=name, kernel=kernel, plain=plain,
-                      description=description)
+    spec = KernelSpec(name=name, kernel=kernel, plain=plain, oracle=oracle,
+                      example=example, description=description)
     _KERNELS[name] = spec
     _LAUNCHES[name] = 0
     return spec
@@ -60,6 +71,10 @@ def get_kernel(name: str) -> KernelSpec:
 
 def kernel_names() -> tuple[str, ...]:
     return tuple(sorted(_KERNELS))
+
+
+def all_kernels() -> tuple[KernelSpec, ...]:
+    return tuple(_KERNELS[n] for n in kernel_names())
 
 
 def resolve_backend(choice: str) -> str:

@@ -3,6 +3,7 @@ wrapper, plain version and registry entry (``csrc/topk.cu``; port of
 ``repro/kernels/topk``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, registry, runtime
@@ -46,6 +47,19 @@ def topk_rows(mat: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals, idx
 
 
+def _oracle(mat, k):
+    m = np.asarray(mat)
+    # stable descending sort == lax.top_k tie-break (lowest index first)
+    order = np.argsort(-m, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(m, order, axis=1), order.astype(np.int32)
+
+
+def _example(device):
+    rng = np.random.default_rng(0)
+    mat = rng.integers(-1, 64, size=(64, 1024)).astype(np.int32)
+    return (torch.from_numpy(mat).to(device), 128), {}
+
+
 registry.register_kernel(
-    "topk_rows", kernel=topk_rows, plain=topk_rows_plain,
+    "topk_rows", kernel=topk_rows, plain=topk_rows_plain, oracle=_oracle, example=_example,
     description="row-wise top-k, lax.top_k tie-break (ragged batch filter)")

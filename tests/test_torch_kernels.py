@@ -128,8 +128,9 @@ def test_kernel_wrappers_reject_bad_inputs():
 
 
 def test_registry_names_duplicates_and_unknowns():
-    assert registry.kernel_names() == ("bincount", "gather_rows", "hot_count",
-                                       "paged_attention", "topk_rows")
+    assert registry.kernel_names() == (
+        "bincount", "consolidate_region", "gather_rows", "gqa_attention", "hot_count",
+        "paged_attention", "scatter_region", "tiered_lookup", "topk_rows")
     spec = registry.get_kernel("bincount")
     with pytest.raises(ValueError, match="already registered"):
         registry.register_kernel("bincount", spec.kernel, spec.plain)
