@@ -20,7 +20,9 @@ first use), then, printing one JSON line per phase:
    paged-attention kernel at the full-width decode shape in bf16 and float32
    (tolerance below, SERVE_TOL), and hot_count at 4 pages per block,
    gather_rows on 8-byte rows and topk_rows on the one-daemon filter row,
-   bit for bit;
+   bit for bit. A kernel row times the whole wrapper call: topk_rows is
+   six launches on a wide row (four radix passes, a compaction and a sort,
+   ``topk_rows_*``) and one on a row of at most 2,048 keys;
 4. engine -- one Redis guest at the paper's size (3,276,800 4 KiB pages,
    2 MB huge pages, 16.8 GB of payload pools on the card) run through
    ``engine.run`` for 16 memtierd windows and 4 each of autonuma and tpp,
@@ -172,7 +174,8 @@ class Timer:
 
     * ``device_ms`` -- the time the card spends in the call's kernels, from
       a torch.profiler trace (mean per run; the flush's own kernel excluded
-      by name), or None when the trace holds no device events;
+      by name), or None when the trace holds no device events, with the
+      same time split by kernel name;
     * ``call_ms`` -- the median time between CUDA events around one call,
       which adds the host's launch overhead whenever the card waits for it.
     """
@@ -183,7 +186,7 @@ class Timer:
     def _flush(self):
         torch.bitwise_not(self.flush, out=self.flush)
 
-    def device_ms(self, fn) -> float | None:
+    def device_ms(self, fn) -> tuple[float | None, dict]:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -194,11 +197,13 @@ class Timer:
                 self._flush()
                 fn()
             torch.cuda.synchronize()
-        device = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and "bitwise_not" not in e.name]
-        if not device:
-            return None
-        return sum(e.time_range.elapsed_us() for e in device) / TIMED_RUNS / 1e3
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and "bitwise_not" not in e.name:
+                name = e.name[:60]
+                by_name[name] = (by_name.get(name, 0.0)
+                                 + e.time_range.elapsed_us() / TIMED_RUNS / 1e3)
+        return (sum(by_name.values()) if by_name else None), by_name
 
     def call_ms(self, fn) -> float:
         for _ in range(3):
@@ -217,10 +222,11 @@ class Timer:
 
     def __call__(self, fn) -> dict:
         """``ms``: the device time, or the event time where the trace has
-        none (``timing`` says which)."""
+        none (``timing`` says which); ``ms_by_kernel``: the device time by
+        kernel name."""
         call = self.call_ms(fn)
-        dev = self.device_ms(fn)
-        return dict(ms=call if dev is None else dev, call_ms=call,
+        dev, by_name = self.device_ms(fn)
+        return dict(ms=call if dev is None else dev, call_ms=call, ms_by_kernel=by_name,
                     timing="events" if dev is None else "profiler")
 
 
@@ -332,7 +338,7 @@ def kernels_phase(cases: list, device, path: str) -> list[dict]:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib["ms"], call_ms=kern["call_ms"],
             plain_call_ms=plain["call_ms"], library_call_ms=lib["call_ms"],
-            timing=kern["timing"],
+            timing=kern["timing"], ms_by_kernel=kern["ms_by_kernel"],
             shapes=[list(a.shape) for a in args if isinstance(a, torch.Tensor)],
             bytes=nbytes))
     return rows
@@ -455,7 +461,7 @@ def engine_phase(spec, trace: np.ndarray, policy: str, n_windows: int, device) -
         identical=True, payload_intact=True)
 
 
-PORT_KERNELS = ("bincount_", "hot_count_", "topk_rows_kernel", "gather_rows_")
+PORT_KERNELS = ("bincount_", "hot_count_", "topk_rows_", "gather_rows_")
 PROFILED_WINDOWS = 4
 
 
@@ -525,7 +531,7 @@ SERVE_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
              torch.bfloat16: dict(atol=1e-6, rtol=2 ** -7)}
 LOGITS_RTOL = 2 ** -4
 SERVE_KERNELS = ("paged_attention", "hot_count", "topk_rows", "gather_rows")  # the path's
-PORT_SERVE_KERNELS = ("paged_attn_", "hot_count_", "topk_rows_kernel", "gather_rows_")
+PORT_SERVE_KERNELS = ("paged_attn_", "hot_count_", "topk_rows_", "gather_rows_")
 
 
 def serve_model(device):

@@ -34,7 +34,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "rt_bincount": (_P, _P, _L, _I, _P, _P),
     "rt_hot_count": (_P, _L, _I, _P, _P),
-    "rt_topk_rows": (_P, _I, _L, _I, _P, _P, _P),
+    "rt_topk_rows": (_P, _I, _L, _I, _P, _P, _P, _P, _P),
+    "rt_topk_scratch": (_I, _L, _I, _P),
     "rt_topk_max_k": (),
     "rt_gather_rows": (_P, _L, _L, _P, _L, _P, _P),
     "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import build, registry, runtime
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HD = 256  # csrc/flash_attention.cu: 16 lanes x 16 accumulator columns
+MAX_HD = 256  # csrc/flash_attention.cu: the largest head the kernels hold
 CHUNK_SCORES = 1 << 26  # float32 scores per chunk of the plain version (256 MB)
 
 
@@ -65,8 +65,9 @@ def gqa_attention_plain(q, k, v, causal=True, block_q=128, block_k=128):
 
 
 def flash_attention(q, k, v, causal=True, block_q=128, block_k=128):
-    """The K7 wrapper: (B, H, S, hd) in q's dtype; launches
-    ``flash_attn_fwd`` on CUDA tensors."""
+    """The K7 wrapper: (B, H, S, hd) in q's dtype; on CUDA tensors launches
+    ``flash_attn_bf16`` (tensor cores) for bf16 and ``flash_attn_fwd``
+    (float32 FMAs) for float32."""
     _check(q, k, v)
     if not runtime.on_cuda(q, k, v):
         return gqa_attention_plain(q, k, v, causal, block_q, block_k)

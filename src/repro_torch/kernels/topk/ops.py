@@ -3,6 +3,8 @@ wrapper, plain version and registry entry (``csrc/topk.cu``; port of
 ``repro/kernels/topk``)."""
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -40,10 +42,16 @@ def topk_rows(mat: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     runtime.require(k <= max_k, "topk_rows", f"kernel takes k <= {max_k}, got {k}")
     runtime.require(width < 2**31, "topk_rows", f"width {width} >= 2^31")
     mat = mat.contiguous()
+    # the kernels' scratch: the wide-row plan's histograms, row states and
+    # survivors, and its zeroed counters (both empty for narrow rows)
+    sizes = (ctypes.c_longlong * 2)()
+    build.check(lib.rt_topk_scratch(rows, width, k, ctypes.addressof(sizes)), "topk_rows")
+    scratch = torch.empty(sizes[0], dtype=torch.uint8, device=mat.device)
+    zeroed = torch.zeros(sizes[1], dtype=torch.uint8, device=mat.device)
     registry.count_launch("topk_rows")
     build.check(lib.rt_topk_rows(
         mat.data_ptr(), rows, width, k, vals.data_ptr(), idx.data_ptr(),
-        runtime.stream()), "topk_rows")
+        scratch.data_ptr(), zeroed.data_ptr(), runtime.stream()), "topk_rows")
     return vals, idx
 
 

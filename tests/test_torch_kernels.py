@@ -156,6 +156,22 @@ def test_launch_counts_reset():
     assert set(registry.launch_counts().values()) == {0}
 
 
+def _mass_ties(r, width, n_hot):
+    """One filter-like row: -1 everywhere but n_hot scores in [0, 50)."""
+    row = np.full((1, width), -1, np.int32)
+    row[0, r.choice(width, n_hot, replace=False)] = r.integers(0, 50, n_hot)
+    return row
+
+
+def _extremes(r, shape):
+    """Random int32 keys, a third of them the extremes and their neighbours."""
+    mat = r.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    edge = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int32)
+    pick = r.random(shape) < 1 / 3
+    mat[pick] = r.choice(edge, int(pick.sum()))
+    return mat
+
+
 def _card_cases(r):
     """(kernel, args) edge cases for the card: every code path of each
     kernel (shared/global histogram, vector/byte loads, ties, ragged tiles)."""
@@ -171,6 +187,16 @@ def _card_cases(r):
         ("topk_rows", (np.full((2, 9000), 7, np.int32), 1000)),  # all tied
         ("topk_rows", (ints(-2**31 + 1, 2**31 - 1, (4, 12_345)), 2048)),
         ("topk_rows", (ints(0, 50, (1, 1)), 1)),
+        # wide rows, spread over many CTAs: -1 mass ties whose wanted ties
+        # end inside the first chunk; a multi-chunk row all tied; int32
+        # extremes; just below and above the narrow-row threshold (2,048
+        # keys); k == width on a multi-chunk row (scalar loads)
+        ("topk_rows", (_mass_ties(r, 1_000_003, 600), 2048)),
+        ("topk_rows", (np.full((1, 40_000), 5, np.int32), 4096)),
+        ("topk_rows", (_extremes(r, (3, 200_001)), 1000)),
+        ("topk_rows", (ints(-1, 2, (3, 2048)), 2000)),
+        ("topk_rows", (ints(-1, 2, (3, 2049)), 2000)),
+        ("topk_rows", (ints(-1, 3, (1, 3001)), 3001)),
         ("gather_rows", (r.standard_normal((300, 1024)).astype(np.float32),
                          ints(0, 300, (2, 64)))),
         ("gather_rows", (ints(0, 255, (40, 3)).astype(np.uint8),

@@ -302,6 +302,19 @@ def _card_cases(dev):
                                              rnd(B, KVH, Sk, hd, dtype=dtype),
                                              rnd(B, KVH, Sk, hd, dtype=dtype)),
                           dict(causal=causal)))
+    # bf16 scores scaled by 8 (std 8 instead of 1): sharp rows for the
+    # softmax on the tensor-core fragments. q and k lie on grids of 2 and
+    # 1/4, so every score is exact in float32 whatever the order of its sums:
+    # at this scale one float32 rounding of a score (|q.k| near 200) moves a
+    # probability by about 2e-6, past the 1e-6 that CARD_TOL allows near 0,
+    # for any two float32 versions (with normal draws the plain version
+    # itself falls outside CARD_TOL of a float64 softmax at some outputs:
+    # repro_torch/kernels/flash_attention/accuracy.py)
+    grid = lambda step, *shape: (torch.randn(shape, generator=g) * 4).round().mul(  # noqa: E731
+        step).to(torch.bfloat16).to(dev)
+    cases.append(("gqa_attention", (grid(2.0, 2, 14, 300, 64), grid(0.25, 2, 2, 300, 64),
+                                     rnd(2, 2, 300, 64, dtype=torch.bfloat16)),
+                  dict(causal=True)))
     return cases
 
 
