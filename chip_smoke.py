@@ -15,14 +15,17 @@ first use), then, printing one JSON line per phase:
    version on the same inputs (tolerance: exact, the kernels are integer
    arithmetic and bit copies), timed beside the plain version, one library
    call computing the same function, and the least time the card could take
-   (bytes over 3.35 TB/s, operations over 67 TFLOP/s); after the serve
-   phase, the same for the serving path's kernels at its shapes: the
-   paged-attention kernel at the full-width decode shape in bf16 and float32
-   (tolerance below, SERVE_TOL), and hot_count at 4 pages per block,
-   gather_rows on 8-byte rows and topk_rows on the one-daemon filter row,
-   bit for bit. A kernel row times the whole wrapper call: topk_rows is
-   six launches on a wide row (four radix passes, a compaction and a sort,
-   ``topk_rows_*``) and one on a row of at most 2,048 keys;
+   (bytes over 3.35 TB/s, operations over 67 TFLOP/s), and bincount once
+   more on the host histogram's pairs shuffled (no runs of equal ids); after
+   the serve phase, the same for the serving path's kernels at its shapes:
+   the paged-attention kernel at the full-width decode shape in bf16 and
+   float32 and in bf16 at ragged lens drawn between 16 and 2,048 (tolerance
+   below, SERVE_TOL), and hot_count at 4 pages per block, gather_rows on
+   8-byte rows and topk_rows on the one-daemon filter row, bit for bit. A
+   kernel row times the whole wrapper call: topk_rows is six launches on a
+   wide row (four radix passes, a compaction and a sort, ``topk_rows_*``)
+   and one on a row of at most 2,048 keys; paged_attention and bincount are
+   one launch each (the serving rows' trace must show K6 as one kernel);
 4. engine -- one Redis guest at the paper's size (3,276,800 4 KiB pages,
    2 MB huge pages, 16.8 GB of payload pools on the card) run through
    ``engine.run`` for 16 memtierd windows and 4 each of autonuma and tpp,
@@ -107,6 +110,8 @@ N_WINDOWS, APW = 16, 2_097_152  # 2 * APW >= N_LOGICAL: the histogram branch
 RUN = dict(backend="ipt", use_gpac=True, max_batches=4, budget=64,
            windows_per_step=4)
 TIMED_RUNS = 25
+TRACE_ATTEMPTS = 3  # profiler traces of one call before its device time counts as lost
+LEAD_IN = 64  # untimed launches that open each trace (see Timer)
 ENGINE_KERNELS = ("bincount", "hot_count", "topk_rows", "gather_rows")  # the engine's path
 
 KERNEL_SOURCES = {  # name -> (CUDA source, the Pallas kernel it replaces)
@@ -174,36 +179,94 @@ class Timer:
 
     * ``device_ms`` -- the time the card spends in the call's kernels, from
       a torch.profiler trace (mean per run; the flush's own kernel excluded
-      by name), or None when the trace holds no device events, with the
-      same time split by kernel name;
+      by its full name), with the same time split by kernel name and each
+      name's events per run. On the H100 a trace can lose its first few device
+      events, more of them the longer the process has run, with or without
+      the CPU's activity traced; so each trace starts with LEAD_IN untimed
+      launches, and the runs are cut at the flushes after them. The trace
+      counts only if it is whole: one flush event per run, the same kernel
+      names the same number of times in every run, and in each run at
+      least as many of the port's own kernels (the names outside PyTorch's
+      ``at::``, copies and fills aside) as the wrappers counted launches.
+      Else it is taken again, up to TRACE_ATTEMPTS times, and then the
+      device time is None and the fault is kept;
     * ``call_ms`` -- the median time between CUDA events around one call,
       which adds the host's launch overhead whenever the card waits for it.
     """
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        self.lead = torch.zeros(1, device=device)
+        # the flush kernel's full name (a call may run bitwise_not on other
+        # dtypes): the last device event of a trace that ends with flushes
+        events = self._trace(lambda: [self._flush() for _ in range(4)])
+        if not events:
+            raise RuntimeError("torch.profiler traced no device event")
+        self.flush_name = events[-1][0]
 
     def _flush(self):
         torch.bitwise_not(self.flush, out=self.flush)
 
-    def device_ms(self, fn) -> tuple[float | None, dict]:
+    def _trace(self, body) -> list:
+        """(name, us) of the device events of ``body``, in start order,
+        after LEAD_IN untimed launches."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                self.lead.add_(1)
+            torch.cuda.synchronize()
+            body()
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                        for e in prof.events() if e.device_type == DeviceType.CUDA)
+        return [(name, us) for _, name, us in events]
+
+    def _runs(self, events, own_launches: int) -> tuple[list, str | None]:
+        """A trace's device events cut into runs at the flushes, the lead-in
+        before them dropped; and what makes the trace less than whole, or
+        None."""
+        flushes = [i for i, (name, _) in enumerate(events) if name == self.flush_name]
+        if len(flushes) != TIMED_RUNS:
+            return [], f"{len(flushes)} flush events for {TIMED_RUNS} runs"
+        runs = [events[a + 1:b] for a, b in zip(flushes, flushes[1:] + [len(events)])]
+        names = [sorted(name for name, _ in r) for r in runs]
+        if not names[0] or any(n != names[0] for n in names):
+            return [], "the runs' kernel events differ: " + ", ".join(
+                str(len(n)) for n in names)
+        own = sum("at::" not in name and not name.startswith(("Memcpy", "Memset"))
+                  for name in names[0])
+        if own * TIMED_RUNS < own_launches:
+            return [], f"{own} of the port's kernels per run, {own_launches} launches counted"
+        return runs, None
+
+    def device_ms(self, fn) -> dict:
+        def body():
             for _ in range(TIMED_RUNS):
                 self._flush()
                 fn()
-            torch.cuda.synchronize()
+
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(TRACE_ATTEMPTS):
+            before = sum(registry.launch_counts().values())
+            events = self._trace(body)
+            own_launches = sum(registry.launch_counts().values()) - before
+            runs, fault = self._runs(events, own_launches)
+            if fault is None:
+                break
+        if fault is not None:
+            return dict(device_ms=None, by_name={}, events_per_run={}, trace_fault=fault)
         by_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and "bitwise_not" not in e.name:
-                name = e.name[:60]
-                by_name[name] = (by_name.get(name, 0.0)
-                                 + e.time_range.elapsed_us() / TIMED_RUNS / 1e3)
-        return (sum(by_name.values()) if by_name else None), by_name
+        per_run: dict[str, int] = {}
+        for name, us in (ev for run in runs for ev in run):
+            name = name[:60]
+            by_name[name] = by_name.get(name, 0.0) + us / TIMED_RUNS / 1e3
+            per_run[name] = per_run.get(name, 0) + 1
+        return dict(device_ms=sum(by_name.values()), by_name=by_name,
+                    events_per_run={k: n // TIMED_RUNS for k, n in per_run.items()},
+                    trace_fault=None)
 
     def call_ms(self, fn) -> float:
         for _ in range(3):
@@ -221,13 +284,15 @@ class Timer:
         return statistics.median(times)
 
     def __call__(self, fn) -> dict:
-        """``ms``: the device time, or the event time where the trace has
-        none (``timing`` says which); ``ms_by_kernel``: the device time by
-        kernel name."""
+        """``ms``: the device time, or the event time where the trace is not
+        whole (``timing``: "profiler", or "events" and why); ``ms_by_kernel``:
+        the device time by kernel name, ``events_per_run`` its launches."""
         call = self.call_ms(fn)
-        dev, by_name = self.device_ms(fn)
-        return dict(ms=call if dev is None else dev, call_ms=call, ms_by_kernel=by_name,
-                    timing="events" if dev is None else "profiler")
+        d = self.device_ms(fn)
+        dev = d["device_ms"]
+        return dict(ms=call if dev is None else dev, call_ms=call, ms_by_kernel=d["by_name"],
+                    events_per_run=d["events_per_run"],
+                    timing="profiler" if dev is not None else f"events ({d['trace_fault']})")
 
 
 def _nbytes(*ts) -> int:
@@ -267,8 +332,12 @@ def kernel_cases(spec, state, trace0: torch.Tensor, gen: torch.Generator) -> lis
                             device=dev, dtype=torch.int32)
     row_bytes = cfg.base_elems * near_rows.element_size()
 
+    # the host histogram's pairs in a random order: no runs of equal ids
+    shuffle = torch.randperm(hp_of.numel(), generator=gen, device=dev)
+    hp_sh, h_sh = hp_of[shuffle].contiguous(), h[shuffle].contiguous()
     # the library yardstick: torch.bincount wants int64 ids and float weights
     acc_ids64, hp_of64, h_f = acc_ids.long(), hp_of.long(), h.to(torch.float32)
+    hp_sh64, h_sh_f = hp_sh.long(), h_sh.to(torch.float32)
 
     return [
         ("bincount", "access_histogram", (acc_ids, ones, cfg.n_logical + 1),
@@ -277,6 +346,9 @@ def kernel_cases(spec, state, trace0: torch.Tensor, gen: torch.Generator) -> lis
         ("bincount", "host_histogram", (hp_of, h, cfg.n_gpa_hp),
          lambda: torch.bincount(hp_of64, weights=h_f, minlength=cfg.n_gpa_hp),
          _nbytes(hp_of, h) + 4 * cfg.n_gpa_hp, hp_of.numel(), None),
+        ("bincount", "host_histogram shuffled (on no path)", (hp_sh, h_sh, cfg.n_gpa_hp),
+         lambda: torch.bincount(hp_sh64, weights=h_sh_f, minlength=cfg.n_gpa_hp),
+         _nbytes(hp_sh, h_sh) + 4 * cfg.n_gpa_hp, hp_sh.numel(), None),
         ("hot_count", "hot_subpages_per_hp", (hot_gpa, hp),
          lambda: hot_gpa.view(-1, hp).sum(dim=1, dtype=torch.int32),
          _nbytes(hot_gpa) + 4 * cfg.n_gpa_hp, hot_gpa.numel(), None),
@@ -338,7 +410,8 @@ def kernels_phase(cases: list, device, path: str) -> list[dict]:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib["ms"], call_ms=kern["call_ms"],
             plain_call_ms=plain["call_ms"], library_call_ms=lib["call_ms"],
-            timing=kern["timing"], ms_by_kernel=kern["ms_by_kernel"],
+            timing=kern["timing"], plain_timing=plain["timing"], library_timing=lib["timing"],
+            ms_by_kernel=kern["ms_by_kernel"], events_per_run=kern["events_per_run"],
             shapes=[list(a.shape) for a in args if isinstance(a, torch.Tensor)],
             bytes=nbytes))
     return rows
@@ -690,9 +763,9 @@ def serve_profile_phase(model, params, device, n_steps: int = 4) -> dict:
 def serve_kernel_cases(eng, gen: torch.Generator) -> list:
     """The serving path's kernels at its shapes, on the GPAC-on run's final
     cache and placement state: paged_attention on layer 0's pages at the
-    full-width decode shape (bf16, and the same data in float32), hot_count
-    at 4 pages per block, gather_rows on the 8-byte placement rows and
-    topk_rows on one daemon's filter row."""
+    full-width decode shape (bf16, the same data in float32, and bf16 at
+    ragged lens), hot_count at 4 pages per block, gather_rows on the 8-byte
+    placement rows and topk_rows on one daemon's filter row."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     cfg, pcfg = eng.model.cfg, eng.pcfg
@@ -702,8 +775,11 @@ def serve_kernel_cases(eng, gen: torch.Generator) -> list:
     vp = eng.cache["layers"]["layer0"]["v_pages"][0]
     btab, lens = eng.cache["btab"], eng.cache["lens"] + 1
     pps, page = btab.shape[1], cfg.page_size
+    # ragged: per-sequence lens across the cache's range (on no path)
+    ragged = torch.randint(16, SERVE["max_seq_len"] + 1, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
     cases = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, lens in ((torch.bfloat16, lens), (torch.float32, lens), (torch.bfloat16, ragged)):
         q = torch.randn((B, KVH, G, hd), generator=gen, device=dev).to(dtype)
         k, v = kp.to(dtype), vp.to(dtype)
         # the yardstick reads K/V gathered into contiguous rows beforehand
@@ -718,7 +794,8 @@ def serve_kernel_cases(eng, gen: torch.Generator) -> list:
         nbytes = 2 * n_tok * KVH * row + 2 * _nbytes(q) + _nbytes(btab, lens)
         cases.append((
             "paged_attention", f"decode {str(dtype)[6:]} B={B} KVH={KVH} G={G} hd={hd} "
-            f"page={page} pps={pps} len={int(lens.min())}-{int(lens.max())}",
+            f"page={page} pps={pps} len={int(lens.min())}-{int(lens.max())}"
+            + (" ragged (on no path)" if lens is ragged else ""),
             (q, k, v, btab, lens),
             lambda qs=qs, kg=kg, vg=vg, mask=mask: sdpa(qs, kg, vg, attn_mask=mask,
                                                         enable_gqa=True),
@@ -964,6 +1041,9 @@ def main() -> None:
     serve_rows = kernels_phase(serve_kernel_cases(serve_eng, gen), device, "serve")
     for row in serve_rows:
         row["launches"] = serve_launches[row["name"]]
+        if row["name"] == "paged_attention" and row["timing"] == "profiler":
+            assert list(row["events_per_run"].values()) == [1], \
+                f"K6 is one launch a call: {row['events_per_run']}"
     del serve_eng
     torch.cuda.empty_cache()
     emit(serve_profile_phase(model, params, device))

@@ -38,7 +38,7 @@ SIGNATURES = {
     "rt_topk_scratch": (_I, _L, _I, _P),
     "rt_topk_max_k": (),
     "rt_gather_rows": (_P, _L, _L, _P, _L, _P, _P),
-    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
+    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "rt_consolidate_gather": (_P, _L, _L, _P, _I, _P, _P),
     "rt_consolidate_scatter": (_P, _L, _L, _P, _P, _I, _P),

@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import build, registry, runtime
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-CHUNK = 64  # tokens per kernel chunk (csrc/paged_attention.cu: kChunk)
+CHUNK = 64  # positions per kernel chunk (csrc/paged_attention.cu: 8 warps x kTpw)
 MAX_G, MAX_HD = 16, 256  # the kernel's register and shared-memory sizing
 
 
@@ -78,12 +78,39 @@ def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _n_splits(device: torch.device, n_rows: int, capacity: int) -> int:
-    """KV splits per (sequence, kv head): enough CTAs for two per SM, and no
-    more splits than chunks of the table's capacity. The split depends on
+CTAS_PER_SM = 1  # the split plan's target (``sweep.py`` on the card)
+# block-table entries one CTA's chunks may span: the kernel stages them in
+# shared memory beside its three-stage ring
+MAX_TAB = 1024
+
+
+def _n_splits(device: torch.device, n_rows: int, capacity: int, page: int) -> int:
+    """KV splits per (sequence, kv head): about CTAS_PER_SM CTAs per SM, no
+    more splits than chunks of the table's capacity, and enough that one
+    CTA's chunks span at most MAX_TAB table entries. The split depends on
     the card and the shapes only, never on where the pages lie."""
-    want = -(-2 * _n_sm(device.index or 0) // max(n_rows, 1))
-    return max(1, min(want, -(-capacity // CHUNK)))
+    n_chunks = -(-capacity // CHUNK)
+    want = -(-CTAS_PER_SM * _n_sm(device.index or 0) // max(n_rows, 1))
+    least = -(-n_chunks // max(1, MAX_TAB // ((CHUNK - 1) // page + 2)))
+    return max(1, least, min(want, n_chunks))
+
+
+_WORKSPACE: dict = {}  # (device, stream) -> (part_acc, part_ml, tickets)
+
+
+def _workspace(device: torch.device, n_acc: int, n_ml: int, n_rows: int):
+    """The split partials and the per-(b, kvh) tickets of one stream, grown
+    when a larger call arrives. The tickets are zeroed once, here: the
+    kernel leaves them at 0."""
+    key = (device.index, runtime.stream())
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_acc or ws[1].numel() < n_ml or ws[2].numel() < n_rows:
+        old = ws or (torch.empty(0), torch.empty(0), torch.empty(0))
+        ws = (torch.empty(max(n_acc, old[0].numel()), dtype=torch.float32, device=device),
+              torch.empty(max(n_ml, old[1].numel()), dtype=torch.float32, device=device),
+              torch.zeros(max(n_rows, old[2].numel()), dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def paged_attention(q, k_pages, v_pages, btab, lens):
@@ -91,6 +118,12 @@ def paged_attention(q, k_pages, v_pages, btab, lens):
     _check(q, k_pages, v_pages, btab, lens)
     if not runtime.on_cuda(q, k_pages, v_pages, btab, lens):
         return paged_attention_plain(q, k_pages, v_pages, btab, lens)
+    return _launch(q, k_pages, v_pages, btab, lens)
+
+
+def _launch(q, k_pages, v_pages, btab, lens, splits: int | None = None):
+    """The kernel on CUDA tensors: ``splits`` ranges per (sequence, kv head)
+    (default: the plan of ``_n_splits``)."""
     B, KVH, G, hd = q.shape
     n_pool, page = k_pages.shape[2], k_pages.shape[3]
     pps = btab.shape[1]
@@ -107,16 +140,20 @@ def paged_attention(q, k_pages, v_pages, btab, lens):
     if out.numel() == 0:
         return out
     q, btab, lens = q.contiguous(), btab.contiguous(), lens.contiguous()
-    splits = _n_splits(q.device, B * KVH, pps * page)
-    part_acc = torch.empty((B, KVH, splits, G, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, KVH, splits, G, 2), dtype=torch.float32, device=q.device)
+    if q.data_ptr() % 16:  # the kernel reads q in 16-byte vectors
+        q = q.clone()
+    if splits is None:
+        splits = _n_splits(q.device, B * KVH, pps * page, page)
+    runtime.require(splits >= 1, name, f"need at least one split, got {splits}")
+    part_acc, part_ml, tickets = _workspace(
+        q.device, B * KVH * splits * G * hd, B * KVH * splits * G * 2, B * KVH)
     lib = build.library()
     registry.count_launch(name)
     build.check(lib.rt_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), btab.data_ptr(),
         lens.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        B, KVH, G, hd, n_pool, page, pps, splits, hd ** -0.5, _DTYPES[q.dtype],
-        runtime.stream()), name)
+        tickets.data_ptr(), B, KVH, G, hd, n_pool, page, pps, splits, hd ** -0.5,
+        _DTYPES[q.dtype], runtime.stream()), name)
     return out
 
 

@@ -172,6 +172,23 @@ def _extremes(r, shape):
     return mat
 
 
+def _runs_of_512(r, n_hp=3000, n_bins=8000):
+    """gpt // 512 over an identity layout: runs of 512 equal ids, weights
+    mostly 0, the last run unmapped (-1, which wraps to the last bin)."""
+    ids = np.repeat(np.arange(n_hp, dtype=np.int32), 512)
+    ids[-512:] = -1
+    w = (r.integers(1, 4, ids.size) * (r.random(ids.size) < 0.3)).astype(np.int32)
+    return ids, w, n_bins
+
+
+def _zipf_ids(r, k, n):
+    """Zipf (a = 1.3) page ids into n pages plus the extra bin n that takes
+    the invalid ids (5% of them), unit weights."""
+    ids = np.minimum(r.zipf(1.3, k) - 1, n).astype(np.int32)
+    ids[r.random(k) < 0.05] = n
+    return ids, np.ones(k, np.int32), n + 1
+
+
 def _card_cases(r):
     """(kernel, args) edge cases for the card: every code path of each
     kernel (shared/global histogram, vector/byte loads, ties, ragged tiles)."""
@@ -179,6 +196,14 @@ def _card_cases(r):
     return [
         ("bincount", (ints(-300, 300, 5000), ints(-2, 4, 5000), 257)),  # wrap + drop
         ("bincount", (ints(-9, 20_000, 70_000), ints(0, 3, 70_000), 20_000)),  # global
+        # every id in one bin (shared and global path, a k % 4 tail); runs
+        # of 512 equal ids with mostly zero weights and a last run of -1, the
+        # host histogram's layout; a Zipf draw into 40,001 bins whose last
+        # bin takes the invalid ids, the access histogram's layout
+        ("bincount", (np.full(100_003, 7, np.int32), ints(-5, 6, 100_003), 10)),
+        ("bincount", (np.full(70_001, 19_999, np.int32), ints(0, 9, 70_001), 20_000)),
+        ("bincount", _runs_of_512(r)),
+        ("bincount", _zipf_ids(r, 300_001, 40_000)),
         ("hot_count", (r.random(64 * 512) < 0.2, 512)),
         ("hot_count", (r.random(37 * 7) < 0.5, 7)),  # byte path
         ("hot_count", (ints(0, 256, 33 * 48).astype(np.uint8), 48)),
@@ -258,5 +283,43 @@ def test_kernels_match_plain_versions_on_the_card():
                                            msg=lambda m: f"{shapes} {g.dtype}: {m}")
             else:
                 assert torch.equal(g, w), (name, shapes)
+    extra = _card_invariants(r, dev)
     counts = registry.launch_counts()
-    assert counts == {n: sum(c == n for c, _ in cases) for n in counts}
+    assert counts == {n: sum(c == n for c, _ in cases) + extra.get(n, 0) for n in counts}
+
+
+def _card_invariants(r, dev):
+    """On the card: paged_attention at G = 7, hd = 64 with a len that leaves
+    most splits empty, one at the table's full capacity, a repeated call
+    (the tickets reset) and a consistent permutation of the physical pages
+    with btab remapped to match, both bit-identical to the first call (the
+    split plan never looks at btab); bincount on views that are not 16-byte
+    aligned. Returns the launches it made, by kernel name."""
+    from repro_torch.kernels.histogram import bincount, ops as hist_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    B, KVH, G, hd, n_pool, page, pps = 4, 2, 7, 64, 80, 16, 72
+    lens = torch.tensor([40, pps * page, 700, 1], dtype=torch.int32, device=dev)
+    btab = np.stack([r.permutation(n_pool)[:pps] for _ in range(B)]).astype(np.int32)
+    perm = r.permutation(n_pool)  # page p of every pool moves to perm[p]
+    btab2 = torch.from_numpy(perm[btab].astype(np.int32)).to(dev)
+    btab = torch.from_numpy(btab).to(dev)
+    inv = torch.from_numpy(np.argsort(perm)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        draw = lambda *shape: torch.from_numpy(  # noqa: E731
+            r.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+        q, k, v = draw(B, KVH, G, hd), draw(B, KVH, n_pool, page, hd), draw(B, KVH, n_pool, page, hd)
+        out = pa_ops.paged_attention(q, k, v, btab, lens)
+        torch.testing.assert_close(out.float(), pa_ops.paged_attention_plain(
+            q, k, v, btab, lens).float(), **PAGED_TOL[dtype])
+        assert torch.equal(out, pa_ops.paged_attention(q, k, v, btab, lens)), dtype
+        moved = pa_ops.paged_attention(q, k[:, :, inv].contiguous(), v[:, :, inv].contiguous(),
+                                       btab2, lens)
+        assert torch.equal(out, moved), dtype
+    for n in (5_000, 20_000):  # the shared and the global path
+        ids, w, n_bins = _zipf_ids(r, 50_003, n)
+        ids, w = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
+        for off in (1, 2, 3):
+            got = bincount(ids[off:], w[off:], n_bins)
+            assert torch.equal(got, hist_ops.bincount_plain(ids[off:], w[off:], n_bins)), off
+    return {"paged_attention": 6, "bincount": 6}
