@@ -36,7 +36,27 @@ first use), then, printing one JSON line per phase:
 5. profile -- four memtierd windows through the kernels under
    torch.profiler: the device's busy time and idle share per window, the
    four kernels' share of the busy time, and device time by kernel name;
-6. serve -- qwen2-0.5b at full width in bf16 (random weights from a seeded
+6. churn -- a five-guest fleet (masim, redis, memcached, hash, ocean_ncp at
+   0.4 x their paper Table 2 RSS in 4 KiB pages, rounded down to a
+   multiple of 512: 4,990,464 pages, 25.6 GB of payload pools) through
+   ``engine.run_churn`` for 12 memtierd windows of 524,288 accesses per
+   guest under a fixed fault schedule (a crash and a later restart, a
+   reboot, a shrink of the near tier to 0.7 x n_near and its grow-back, a
+   telemetry dropout), twice through the kernels and twice with
+   ``kernel_backend="torch"``, in turns: final carries and series must be
+   identical, K1-K4 must launch in each kernel run and nothing in a plain
+   run, the ``active`` series must follow the schedule, the crashed
+   guest's near blocks must be 0 from its crash window on, the pressure
+   controller must engage under the shrink and be idle after the
+   grow-back, allocated near usage must stay within n_near, the untouched
+   guests' pages must read back their initial payload and the crashed and
+   rebooted guests' pages zeros; then a no-fault ``run_churn`` over 4
+   windows must equal ``engine.run`` over them bit for bit;
+7. reference -- the same fleet with no faults, 4 memtierd windows through
+   ``engine.run_reference`` (the per-guest oracle) and ``engine.run``, both
+   through the kernels: final states and the hits/near_blocks series must
+   be identical; both s/window printed;
+8. serve -- qwen2-0.5b at full width in bf16 (random weights from a seeded
    torch.Generator) through ``repro_torch.serve.engine.Engine``: 16 requests
    of 1,024 prompt tokens and 32 new tokens, 8 sequences of up to 2,048
    tokens in 16-token pages, GPAC every 8 decode steps. The batch runs
@@ -45,7 +65,7 @@ first use), then, printing one JSON line per phase:
    launch 24 times per decode step), then with ``kernel_backend="torch"``
    (the first decode step's logits must agree with the kernel run's within
    SERVE_TOL); then four decode steps under torch.profiler;
-7. registry -- the kernel registry's public entry points, the path of the
+9. registry -- the kernel registry's public entry points, the path of the
    kernels no model calls: ``consolidate_region`` and ``scatter_region``
    (K5a/K5b) on one 512-slot region of the engine's far row space
    (3,276,800 x 1,024 float32, 13.4 GB, filled as the engine phase fills
@@ -56,7 +76,7 @@ first use), then, printing one JSON line per phase:
    counts are set to 0 before and read after, and every entry must have
    launched. Each output is held to its plain version (K5 bit for bit, K7
    within SERVE_TOL), and K5a, K5b and K7 get kernel rows as in phase 3;
-8. memory -- the tiered memory substrate at full width: a
+10. memory -- the tiered memory substrate at full width: a
    TieredEmbeddingStore over qwen2-0.5b's tied 151,936 x 896 table
    (float32, the serve phase's seeded params) through four rounds of a
    Zipf batch of 8 x 1,024 tokens (record_batch, maintenance, then lookup,
@@ -65,13 +85,18 @@ first use), then, printing one JSON line per phase:
    attention mass, two maintenance windows; read_groups must return what
    was appended bit for bit); each with GPAC on and off.
 
-The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
+An engine kernel row's ``launches`` counts the engine's main path (the
+memtierd run); ``launches_by_path`` adds the churn and reference runs. Every
+kernel row carries ``floor_aware_bound_ms``: the launch floor (this run's
+time of hot_count on the serve path's 1,632 bytes, ``launch_floor_ms``) plus
+its bound. The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero; so it does without a CUDA device, and outside a
 checkout of the repository.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -87,7 +112,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import address_space as asp  # noqa: E402
-from repro_torch.core import engine, filter as pfilter, telemetry  # noqa: E402
+from repro_torch.core import engine, faults, filter as pfilter, telemetry  # noqa: E402
 from repro_torch.data import traces  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.consolidate import consolidate_region, scatter_region  # noqa: E402
@@ -139,12 +164,17 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+SAME_BITS_CHUNK = 1 << 30  # elements per torch.equal: its temporary is one byte each
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.dtype.is_floating_point:
         a, b = a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)
-    return torch.equal(a, b)
+    a, b = a.reshape(-1), b.reshape(-1)
+    return all(torch.equal(a[i:i + SAME_BITS_CHUNK], b[i:i + SAME_BITS_CHUNK])
+               for i in range(0, max(a.numel(), 1), SAME_BITS_CHUNK))
 
 
 # --------------------------------------------------------------------------
@@ -422,7 +452,7 @@ def kernels_phase(cases: list, device, path: str) -> list[dict]:
 # --------------------------------------------------------------------------
 def page_fill(ids: torch.Tensor, base_elems: int) -> torch.Tensor:
     """Each page's distinct payload: id + 4096 * element, exact in float32
-    (below 2^23 for every page and element)."""
+    (below 2^24 for every page and element)."""
     e = torch.arange(base_elems, device=ids.device, dtype=torch.float32)
     return ids.to(torch.float32)[:, None] + 4096.0 * e[None, :]
 
@@ -448,13 +478,16 @@ def clone_state(state):
         stats={k: v.clone() for k, v in state.stats.items()})
 
 
-def check_payload(spec, state) -> None:
-    """Every page still reads back its initial payload."""
+def check_payload(spec, state, pages=None, wiped: bool = False) -> None:
+    """Every page of ``pages`` (a range; all when None) still reads back its
+    initial payload, or zeros where ``wiped``."""
     cfg = spec.cfg
-    for lo in range(0, cfg.n_logical, CHUNK):
-        ids = torch.arange(lo, min(lo + CHUNK, cfg.n_logical), dtype=torch.int32,
+    pages = range(cfg.n_logical) if pages is None else pages
+    for lo in range(pages.start, pages.stop, CHUNK):
+        ids = torch.arange(lo, min(lo + CHUNK, pages.stop), dtype=torch.int32,
                            device=state.device)
-        if not same_bits(asp.read_logical(cfg, state, ids), page_fill(ids, cfg.base_elems)):
+        want = page_fill(ids, cfg.base_elems)
+        if not same_bits(asp.read_logical(cfg, state, ids), want * 0 if wiped else want):
             raise AssertionError(f"payload of pages [{lo}, {lo + CHUNK}) changed")
 
 
@@ -466,6 +499,14 @@ def assert_same_states(a, b) -> None:
                     raise AssertionError(f"stats.{k} differs between the runs")
         elif not same_bits(getattr(a, f.name), getattr(b, f.name)):
             raise AssertionError(f"{f.name} differs between the runs")
+
+
+def assert_same_series(ref: dict, got: dict, what: str) -> None:
+    if set(ref) != set(got):
+        raise AssertionError(f"{what}: series keys {sorted(ref)} and {sorted(got)}")
+    for k in ref:
+        if got[k].dtype != ref[k].dtype or not np.array_equal(got[k], ref[k]):
+            raise AssertionError(f"{what}: series {k} differs between the runs")
 
 
 def timed_run(spec, state, trace, policy, kernel_backend):
@@ -506,10 +547,7 @@ def engine_phase(spec, trace: np.ndarray, policy: str, n_windows: int, device) -
             ref, ref_series, peak = state, series, torch.cuda.max_memory_allocated()
             continue
         assert_same_states(ref, state)
-        for k in ref_series:
-            if (series[k].dtype != ref_series[k].dtype
-                    or not np.array_equal(series[k], ref_series[k])):
-                raise AssertionError(f"{policy}: series {k} differs between the runs")
+        assert_same_series(ref_series, series, policy)
         del state
     del base
     for k, v in ref_series.items():
@@ -589,7 +627,171 @@ def profile_phase(spec, trace: np.ndarray, device) -> dict:
 
 
 # --------------------------------------------------------------------------
-# 6. serving: qwen2-0.5b at full width over the GPAC-tiered paged KV cache
+# 6-7. the churn engine and the reference driver on a five-guest fleet
+# --------------------------------------------------------------------------
+CHURN_WORKLOADS = ("masim", "redis", "memcached", "hash", "ocean_ncp")
+CHURN_RSS_SCALE = 0.4  # of the paper's RSS: the fleet's one cut (full: 63.9 GB of pools)
+CHURN_HOST = dict(hp_ratio=512, near_fraction=0.25, base_elems=1024)
+CHURN_WINDOWS, CHURN_APW = 12, 524_288
+CHURN_RUN = dict(policy="memtierd", backend="ipt", use_gpac=True, max_batches=4, budget=64,
+                 slack=1, windows_per_step=4)
+CONTROL_WINDOWS = 4  # the no-fault control and the reference phase
+INTACT, WIPED = ("masim", "redis", "ocean_ncp"), ("memcached", "hash")
+
+
+def churn_fleet(device, scale: float = CHURN_RSS_SCALE):
+    """The fleet's spec: each guest at ``scale`` x its paper RSS in 4 KiB
+    pages, rounded down to a multiple of 512, with its paper CL."""
+    guests = [engine.GuestSpec(int(scale * traces.PAPER_RSS_GB[w] * 2**30 / 4096) // 512 * 512,
+                               cl=traces.PAPER_CL[w], workload=w, seed=g)
+              for g, w in enumerate(CHURN_WORKLOADS)]
+    spec, _ = engine.build(guests, engine.HostSpec(**CHURN_HOST), device=device)
+    return spec
+
+
+def churn_schedule(spec) -> faults.FaultSchedule:
+    """Every kind of fault: memcached crashes at 3 and restarts at 7, hash
+    reboots at 5, the near tier shrinks to 0.7 x n_near at 4 and grows back
+    at 8, window 6's telemetry drops."""
+    g = {w: i for i, w in enumerate(CHURN_WORKLOADS)}
+    n_near = spec.cfg.n_near
+    return (faults.FaultSchedule(len(CHURN_WORKLOADS))
+            .crash(3, g["memcached"]).restart(7, g["memcached"])
+            .crash(5, g["hash"]).restart(5, g["hash"])
+            .shrink(4, int(0.7 * n_near)).shrink(8, n_near).dropout(6))
+
+
+def assert_same_churn(a, b) -> None:
+    assert_same_states(a.state, b.state)
+    for f in ("active", "window", "near_cap", "pressure", "engaged"):
+        if not same_bits(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"churn carry {f} differs between the runs")
+
+
+def churn_run(spec, trace, sched, backend: str, device):
+    """One run_churn from the filled state; the launch counts and the peak
+    memory are reset just before the run and read just after."""
+    cs = engine.init_churn(spec, filled_state(spec, device), device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    cs, series = engine.run_churn(spec, cs, trace, faults=sched, kernel_backend=backend,
+                                  device=device, **CHURN_RUN)
+    torch.cuda.synchronize()
+    return (cs, series, time.perf_counter() - t0, registry.launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def churn_phase(spec, trace: np.ndarray, device) -> tuple[dict, dict]:
+    """The faulted run through the kernels and the plain versions in turns
+    (kernels, plain, plain, kernels), every run held to the first bit for
+    bit, then the schedule's effects and the no-fault control. Returns the
+    phase's line and the churn path's launch counts (the first kernel run)."""
+    cfg, sched = spec.cfg, churn_schedule(spec)
+    n_w, n_g = trace.shape[1], spec.n_guests
+    g = {w: i for i, w in enumerate(CHURN_WORKLOADS)}
+    ref = ref_series = launches = None
+    secs, peaks = {"auto": [], "torch": []}, []
+    gc.collect()  # the earlier phases' garbage
+    allocated_at_start = torch.cuda.memory_allocated()
+    for backend in ("auto", "torch", "torch", "auto"):
+        cs, series, t, counts, peak = churn_run(spec, trace, sched, backend, device)
+        peaks.append(peak)
+        secs[backend].append(t / n_w)
+        if backend == "torch" and any(counts.values()):
+            raise AssertionError(f"churn: the plain run launched kernels: {counts}")
+        if backend == "auto":
+            missing = [k for k in ENGINE_KERNELS if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"churn: kernels never launched on the path: {missing}")
+            launches = launches or counts
+        if ref is None:
+            ref, ref_series = cs, series
+            continue
+        assert_same_churn(ref, cs)
+        assert_same_series(ref_series, series, "churn")
+        del cs
+    want_active = np.ones((n_w, n_g), bool)
+    want_active[3:7, g["memcached"]] = False
+    if not np.array_equal(ref_series["active"], want_active):
+        raise AssertionError(f"churn: active series {ref_series['active'].tolist()}")
+    near_blocks, pressure = ref_series["near_blocks"], ref_series["pressure"]
+    if near_blocks[3:7, g["memcached"]].any():
+        raise AssertionError(f"churn: memcached holds near blocks while down: {near_blocks.tolist()}")
+    if pressure[4] < 1 or pressure[8:].any():
+        raise AssertionError(f"churn: pressure series {pressure.tolist()}")
+    if (near_blocks.sum(axis=1) > cfg.n_near).any():
+        raise AssertionError(f"churn: near usage above n_near={cfg.n_near}")
+    for w in INTACT + WIPED:
+        check_payload(spec, ref.state, range(*spec.logical_range(g[w])), wiped=w in WIPED)
+    hits = int(ref_series["near_hits"].sum() + ref_series["far_hits"].sum())
+    if hits != int((trace >= 0).sum() - (trace[g["memcached"], 3:7] >= 0).sum()):
+        raise AssertionError("churn: hit counts do not add up to the active lanes' accesses")
+    stats = {k: int(v) for k, v in ref.state.stats.items()}
+    pool_gb = (ref.state.near_pool.numel() + ref.state.far_pool.numel()) * 4 / 1e9
+    del ref
+
+    # no-fault control: run_churn against run over the first windows
+    ctl = trace[:, :CONTROL_WINDOWS]
+    cs = engine.init_churn(spec, filled_state(spec, device), device=device)
+    cs, churn_series = engine.run_churn(spec, cs, ctl, device=device, **CHURN_RUN)
+    run_kw = {k: v for k, v in CHURN_RUN.items() if k != "slack"}
+    st, run_series = engine.run(spec, filled_state(spec, device), ctl, device=device, **run_kw)
+    assert_same_states(cs.state, st)
+    assert_same_series(run_series, {k: v for k, v in churn_series.items()
+                                    if k not in ("active", "near_cap", "pressure")}, "control")
+    if not churn_series["active"].all() or churn_series["pressure"].any():
+        raise AssertionError("control: a no-fault run deactivated a lane or engaged")
+    del cs, st
+    return dict(
+        phase="churn", guests={w: spec.guests[i].n_logical for i, w in enumerate(CHURN_WORKLOADS)},
+        n_logical=cfg.n_logical, n_gpa_hp=cfg.n_gpa_hp, n_near=cfg.n_near, windows=n_w,
+        accesses_per_guest_window=trace.shape[2], faults=dataclasses.asdict(sched),
+        s_per_window=statistics.median(secs["auto"]),
+        s_per_window_plain=statistics.median(secs["torch"]), s_per_window_runs=secs,
+        launches=launches, peak_gb=max(peaks) / 1e9,  # runs after the first hold two carries
+        peak_gb_runs=[p / 1e9 for p in peaks], allocated_gb_at_start=allocated_at_start / 1e9,
+        pool_gb=pool_gb, active=ref_series["active"].astype(int).tolist(), near_cap=ref_series["near_cap"].tolist(),
+        pressure=pressure.tolist(), near_blocks=near_blocks.tolist(), stats=stats,
+        identical=True, schedule_followed=True, payload_checked=True,
+        noop_equals_run_windows=CONTROL_WINDOWS), launches
+
+
+def reference_phase(spec, trace: np.ndarray, device) -> tuple[dict, dict]:
+    """``run_reference`` (the sequential per-guest oracle) against ``run``
+    over the fleet's first windows, no faults, both through the kernels."""
+    trace = trace[:, :CONTROL_WINDOWS]
+    kw = {k: CHURN_RUN[k] for k in ("policy", "backend", "use_gpac", "max_batches", "budget")}
+    out = {}
+    for name in ("reference", "run"):
+        st = filled_state(spec, device)
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        if name == "reference":
+            st, series = engine.run_reference(spec, st, trace, device=device, **kw)
+        else:
+            st, series = engine.run(spec, st, trace, device=device,
+                                    windows_per_step=CHURN_RUN["windows_per_step"], **kw)
+        torch.cuda.synchronize()
+        out[name] = (st, series, (time.perf_counter() - t0) / CONTROL_WINDOWS,
+                     registry.launch_counts())
+    (ref_st, ref_series, ref_s, ref_counts), (st, series, run_s, run_counts) = (
+        out["reference"], out["run"])
+    assert_same_states(ref_st, st)
+    assert_same_series(ref_series, series, "reference")
+    missing = [k for k in ENGINE_KERNELS[1:] if ref_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"reference: kernels never launched: {missing}")
+    del out, ref_st, st
+    return dict(phase="reference", windows=CONTROL_WINDOWS, s_per_window_reference=ref_s,
+                s_per_window_run=run_s, speedup=ref_s / run_s, launches_reference=ref_counts,
+                launches_run=run_counts, identical=True), ref_counts
+
+
+# --------------------------------------------------------------------------
+# 8. serving: qwen2-0.5b at full width over the GPAC-tiered paged KV cache
 # --------------------------------------------------------------------------
 SERVE = dict(max_seqs=8, max_seq_len=2048, page_size=16, pages_per_block=4,
              near_fraction=0.4, maintenance_every=8, reserve_tokens=8)
@@ -824,7 +1026,7 @@ def serve_kernel_cases(eng, gen: torch.Generator) -> list:
 
 
 # --------------------------------------------------------------------------
-# 7. the kernel registry's entry points: K5a, K5b and K7 at full width
+# 9. the kernel registry's entry points: K5a, K5b and K7 at full width
 # --------------------------------------------------------------------------
 PADDED_SLOTS = 64
 FA_CASES = (("a", 1, 1024, torch.bfloat16), ("b", 1, 1024, torch.float32),
@@ -915,7 +1117,7 @@ def registry_phase(cases: list, device) -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------------------
-# 8. the tiered memory substrate at full width
+# 10. the tiered memory substrate at full width
 # --------------------------------------------------------------------------
 EMBED_ROUNDS, EMBED_BATCH = 4, (8, 1024)
 KV_SLOTS, KV_LEN, KV_WINDOWS = 8, 2048, 2
@@ -1030,10 +1232,23 @@ def main() -> None:
         torch.cuda.empty_cache()
     main_launches = runs[-1]["launches"]  # the engine's main path: memtierd, 16 windows
     emit(profile_phase(spec, trace, device))
-    for row in kernel_rows:
-        row["launches"] = main_launches[row["name"]]
     del trace, runs
     torch.cuda.empty_cache()
+
+    churn_spec = churn_fleet(device)
+    churn_trace = engine.guest_traces(churn_spec, CHURN_WINDOWS, CHURN_APW)
+    churn_line, churn_launches = churn_phase(churn_spec, churn_trace, device)
+    emit(churn_line)
+    torch.cuda.empty_cache()
+    reference_line, reference_launches = reference_phase(churn_spec, churn_trace, device)
+    emit(reference_line)
+    del churn_spec, churn_trace
+    torch.cuda.empty_cache()
+    for row in kernel_rows:
+        row["launches"] = main_launches[row["name"]]
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in (
+            ("engine", main_launches), ("churn", churn_launches),
+            ("reference", reference_launches))}
 
     model, params = serve_model(device)
     serve_line, serve_eng, serve_launches = serve_phase(model, params, device)
@@ -1057,7 +1272,12 @@ def main() -> None:
     del cases, spec
     torch.cuda.empty_cache()
     emit(memory_phase(model, params, device, gen))
-    emit({"kernels": kernel_rows + serve_rows + registry_rows})
+    rows = kernel_rows + serve_rows + registry_rows
+    # the launch floor: this run's time of K2 on the serve path's 1,632 bytes
+    floor = next(r["ms"] for r in serve_rows if r["name"] == "hot_count")
+    for row in rows:
+        row.update(launch_floor_ms=floor, floor_aware_bound_ms=floor + row["bound_ms"])
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

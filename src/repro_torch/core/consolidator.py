@@ -182,3 +182,32 @@ def consolidate_batches_ragged(spec, state: TieredState, batches: torch.Tensor) 
     return consolidate_rounds(
         spec.cfg, state, batches, spec.tables(state.device).hp_pad,
         spec.kernel_backend)
+
+
+def _uniform_hp_pad(cfg: GpacConfig, n_guests: int, hp_per_guest: int,
+                    device) -> torch.Tensor:
+    """Segment table for N equal GPA segments (the old ``*_multi`` contract:
+    only the GPA space must tile; the logical space is unconstrained)."""
+    if n_guests * hp_per_guest != cfg.n_gpa_hp:
+        raise ValueError("guest GPA segments must tile the GPA space")
+    return torch.arange(cfg.n_gpa_hp, dtype=torch.int32, device=device).view(
+        n_guests, hp_per_guest)
+
+
+def consolidate_pages_multi(
+    cfg: GpacConfig, state: TieredState, pages: torch.Tensor, hp_per_guest: int,
+) -> TieredState:
+    """Deprecated symmetric wrapper: one round over N equal GPA segments
+    (``pages`` int32[n_guests, hp_ratio])."""
+    hp_pad = _uniform_hp_pad(cfg, pages.shape[0], hp_per_guest, state.device)
+    region = _alloc_regions_ragged(cfg, state.rmap, hp_pad)
+    return _apply_consolidation(cfg, state, pages.to(torch.int32), region)
+
+
+def consolidate_batches_multi(
+    cfg: GpacConfig, state: TieredState, batches: torch.Tensor, hp_per_guest: int,
+) -> TieredState:
+    """Deprecated symmetric wrapper: rounds over N equal GPA segments
+    (``batches`` int32[n_guests, max_batches, hp_ratio])."""
+    hp_pad = _uniform_hp_pad(cfg, batches.shape[0], hp_per_guest, state.device)
+    return consolidate_rounds(cfg, state, batches, hp_pad)

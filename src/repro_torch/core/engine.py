@@ -17,10 +17,17 @@ unless the caller passes ``device="cpu"``; without a CUDA device they raise.
 The state is updated in place window by window (see ``core.types``): the
 state handed to :func:`run` is consumed.
 
+The steady-state churn engine (:class:`ChurnState`, :func:`init_churn`,
+:func:`run_churn`, :func:`step_churn`) drives the same window with a fault
+schedule (``core.faults``) and the pressure controller
+(``tiering.pressure_tick``); with no fault it is bit-identical to
+:func:`run`. :func:`run_reference` keeps the sequential per-guest window as
+the equivalence oracle.
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
 items: on-device trace synthesis (:class:`SynthTrace`), the sharded runs
-(:func:`run_sharded`), the churn engine, n-tier hosts and the ``tco``
-collector.
+(:func:`run_sharded`, and ``mesh=`` for the churn engine), n-tier hosts and
+the ``tco`` collector.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import address_space as asp
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import gpac, metrics, telemetry, tiering
 from repro_torch.core.types import GpacConfig, TieredState, allocated_hp_mask, init_state
 from repro_torch.kernels import registry as kernels_registry
@@ -404,8 +412,10 @@ def _collect_near_blocks(spec, state, window) -> dict:
 @register_collector("snapshot")
 def _collect_snapshot(spec, state, window) -> dict:
     """Host-space scalar metrics (``metrics.device_snapshot``); not
-    composable with ``hits`` (both emit ``near_hits``/``far_hits``)."""
-    return metrics.device_snapshot(spec.cfg, state)
+    composable with ``hits`` (both emit ``near_hits``/``far_hits``).
+    ``near_capacity_used`` rounds as the reference's collector does inside
+    ``jax.jit`` (a multiply by float32(1 / n_near))."""
+    return metrics.device_snapshot(spec.cfg, state, jit_rounding=True)
 
 
 @register_collector("tco")
@@ -489,6 +499,8 @@ def _check_device(state: TieredState, device) -> torch.device:
 def _as_source(source) -> ArrayTrace:
     if isinstance(source, ArrayTrace):
         return source
+    if type(source).__name__ == "SynthTrace":  # e.g. the JAX package's
+        raise _not_ported("SynthTrace (on-device trace synthesis)", 10)
     if isinstance(source, (np.ndarray, list, tuple)) or hasattr(source, "__array__"):
         return ArrayTrace(np.asarray(source))
     raise TypeError(
@@ -509,7 +521,7 @@ def _validate(spec: EngineSpec, source: ArrayTrace, collect) -> tuple[str, ...]:
 
 def step(
     spec: EngineSpec,
-    state: TieredState,
+    state,  # TieredState, or a ChurnState for the steady-state stepper
     accesses: torch.Tensor,
     policy: str = "memtierd",
     backend: str = "ipt",
@@ -518,10 +530,25 @@ def step(
     budget: int = 64,
     collect: tuple[str, ...] = ("hits", "near_blocks"),
     *,
+    faults_row: dict | None = None,
+    mesh=None,
+    slack: int = 1,
     arbitration_stride: int | None = None,
-) -> tuple[TieredState, dict]:
+) -> tuple:
     """One engine window (``accesses`` int32[n_guests, k] on the state's
-    device); reads ``state.epoch`` from the device once."""
+    device); reads ``state.epoch`` from the device once. Handed a
+    :class:`ChurnState` it dispatches to :func:`step_churn`, where
+    ``faults_row`` injects this window's faults."""
+    if isinstance(state, ChurnState):
+        return step_churn(
+            spec, state, accesses, faults_row=faults_row, mesh=mesh,
+            policy=policy, backend=backend, use_gpac=use_gpac,
+            max_batches=max_batches, budget=budget, slack=slack,
+            collect=tuple(collect), arbitration_stride=arbitration_stride)
+    if faults_row is not None or mesh is not None:
+        raise TypeError(
+            "faults_row/mesh need the steady-state stepper: pass a "
+            "ChurnState carry (engine.init_churn)")
     spec = _with_overrides(spec, None, arbitration_stride)
     collect = tuple(collect)
     for name in collect:
@@ -626,13 +653,363 @@ def run_sharded(*args, **kwargs):
     raise _not_ported("run_sharded (device-sharded runs)", 13)
 
 
-def init_churn(*args, **kwargs):
-    raise _not_ported("the churn engine", 11)
+# --------------------------------------------------------------------------
+# steady-state churn engine
+# --------------------------------------------------------------------------
+# per-window series every churn driver emits alongside the collectors
+_CHURN_SERIES = ("active", "near_cap", "pressure")
 
 
-def run_churn(*args, **kwargs):
-    raise _not_ported("the churn engine", 11)
+@dataclasses.dataclass
+class ChurnState:
+    """The steady-state stepper's carry: the tiered state plus the churn
+    bookkeeping that persists between driver calls.
+
+    ``active`` is the guest-axis activity mask: an inactive lane contributes
+    no accesses, holds no blocks and is excluded from arbitration.
+    ``window`` is the absolute index of the next window (fault schedules
+    are keyed on it). ``near_cap`` / ``pressure`` / ``engaged`` carry the
+    pressure controller (``tiering.pressure_tick``) across windows. Every
+    field is a tensor on the state's device, as in the reference."""
+
+    state: TieredState
+    active: torch.Tensor  # bool[n_guests] lane activity mask
+    window: torch.Tensor  # int32[] absolute index of the next window
+    near_cap: torch.Tensor  # int32[] effective near capacity in force
+    pressure: torch.Tensor  # int32[] consecutive pressure-engaged windows
+    engaged: torch.Tensor  # bool[] pressure-controller hysteresis latch
 
 
-def step_churn(*args, **kwargs):
-    raise _not_ported("the churn engine", 11)
+def _scalar(value, dtype, device) -> torch.Tensor:
+    """A 0-d tensor filled on ``device`` (a fill, not a host copy)."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def init_churn(
+    spec: EngineSpec,
+    state: TieredState | None = None,
+    active: np.ndarray | None = None,
+    window: int = 0,
+    device=None,
+) -> ChurnState:
+    """Wrap an engine state (a fresh identity state on ``device``, CUDA
+    unless named, when None) for the steady-state stepper. With all lanes
+    active a no-fault churn run is bit-identical to :func:`run` from the
+    same state. Lanes marked inactive in ``active`` are reclaimed at once
+    (crash semantics) and hold no blocks until a restart boots them."""
+    if state is None:
+        dev = runtime.resolve_device(device)
+        state = init_engine_state(spec, device=dev)
+    else:
+        dev = _check_device(state, device)
+    n_g = spec.n_guests
+    act = np.ones((n_g,), bool) if active is None else np.asarray(active, bool)
+    if act.shape != (n_g,):
+        raise ValueError(
+            f"active mask must be bool[n_guests={n_g}], got shape {act.shape}")
+    cs = ChurnState(
+        state=state,
+        active=torch.from_numpy(act.copy()).to(dev),
+        window=_scalar(int(window), torch.int32, dev),
+        near_cap=_scalar(spec.cfg.n_near, torch.int32, dev),
+        pressure=_scalar(0, torch.int32, dev),
+        engaged=_scalar(False, torch.bool, dev),
+    )
+    if not act.all():
+        st, act2 = faults_mod.apply_guest_faults(
+            spec, cs.state, torch.ones((n_g,), dtype=torch.bool, device=dev),
+            torch.from_numpy(~act).to(dev),
+            torch.zeros((n_g,), dtype=torch.bool, device=dev))
+        cs = dataclasses.replace(cs, state=st, active=act2)
+    return cs
+
+
+def _churn_window(
+    spec: EngineSpec,
+    cs: ChurnState,
+    accesses: torch.Tensor,  # int32[n_guests, k] guest-local ids, -1 padded
+    frow: dict,  # this window's fault row, host values: crash, restart, near_cap, drop
+    epoch: int,  # host-side copy of cs.state.epoch
+    policy: str,
+    backend: str,
+    use_gpac: bool,
+    max_batches: int,
+    budget: int,
+    slack: int,
+    collect: tuple[str, ...],
+) -> tuple[ChurnState, dict]:
+    """One churn window: :func:`_window` with the fault row applied first,
+    inactive lanes' accesses masked to -1, the telemetry written through
+    the access histogram (zeroed in a dropout window) and the pressure
+    controller run after the policy tick.
+
+    The fault row lives on the host, so a window without a crash or restart
+    skips the fault pass (it would be value-exact identity) and writes
+    nothing to the pools, and a capacity at ``n_near`` costs the controller
+    no device sync. With no fault every step is value-exact identity, so
+    the run stays bit-identical to :func:`run` on either of its telemetry
+    branches."""
+    cfg = spec.cfg
+    state, active = cs.state, cs.active
+    dev = state.device
+    if frow["crash"].any() or frow["restart"].any():
+        state, active = faults_mod.apply_guest_faults(
+            spec, state, active, torch.from_numpy(frow["crash"]).to(dev),
+            torch.from_numpy(frow["restart"]).to(dev))
+    near_cap = min(int(frow["near_cap"]), cfg.n_near)
+    acc = torch.where(active[:, None], accesses, -1)
+    ids = spec.localize(acc)
+    slot, _, valid = asp.translate(cfg, state, ids)
+    window = dict(
+        near_hits=(valid & (slot < cfg.n_near)).sum(dim=1).to(torch.int32),
+        far_hits=(valid & (slot >= cfg.n_near)).sum(dim=1).to(torch.int32),
+    )
+    kb = spec.kernel_backend
+    h = asp.access_histogram(cfg, ids, valid, kb)
+    if frow["drop"]:
+        h = h * 0  # the reference's integer dropout gate
+    state = asp.apply_access_histogram(cfg, state, h, kb)
+    if use_gpac:
+        state = gpac.gpac_maintenance_ragged(spec, state, backend, max_batches)
+    state = tiering.strided_tick(
+        cfg, state, policy, stride=spec.arbitration_stride, budget=budget,
+        epoch=epoch)
+    state, engaged, press = tiering.pressure_tick(
+        cfg, state, near_cap, cs.engaged, cs.pressure, budget=budget, slack=slack)
+    state = telemetry.end_window(cfg, state)
+    out = run_collectors(spec, state, window, collect)
+    clash = set(out) & set(_CHURN_SERIES)
+    if clash:
+        raise ValueError(
+            f"collectors {collect} emit keys {sorted(clash)} reserved for "
+            f"the churn series {_CHURN_SERIES}")
+    cap = _scalar(near_cap, torch.int32, dev)
+    out.update(active=active, near_cap=cap, pressure=press)
+    return ChurnState(state=state, active=active, window=cs.window + 1,
+                      near_cap=cap, pressure=press, engaged=engaged), out
+
+
+def _resolve_fault_tables(
+    spec: EngineSpec, carried_cap: int, faults, n_windows: int, start: int,
+) -> faults_mod.FaultTables:
+    """The dense fault rows of one driver call: a schedule compiles against
+    the physical ``n_near``; ``faults=None`` keeps the carried capacity
+    ``carried_cap`` (a shrink from an earlier call stays in force);
+    precompiled tables must cover exactly this call's windows."""
+    if faults is None:
+        return faults_mod.no_faults(spec.n_guests).tables(
+            n_windows, carried_cap, start=start)
+    if isinstance(faults, faults_mod.FaultSchedule):
+        if faults.n_guests != spec.n_guests:
+            raise ValueError(
+                f"fault schedule is for {faults.n_guests} guests, spec has "
+                f"{spec.n_guests}")
+        return faults.tables(n_windows, spec.cfg.n_near, start=start)
+    if isinstance(faults, faults_mod.FaultTables):
+        if (faults.n_windows != n_windows or faults.n_guests != spec.n_guests
+                or faults.start != start):
+            raise ValueError(
+                f"fault tables cover windows [{faults.start}, "
+                f"{faults.start + faults.n_windows}) x {faults.n_guests} "
+                f"guests; this run is windows [{start}, {start + n_windows})"
+                f" x {spec.n_guests}")
+        return faults
+    raise TypeError(
+        f"faults must be a FaultSchedule, FaultTables or None, got "
+        f"{type(faults).__name__}")
+
+
+def run_churn(
+    spec: EngineSpec,
+    cs: ChurnState,
+    source: ArrayTrace | np.ndarray,
+    *,
+    faults=None,  # FaultSchedule | FaultTables | None
+    mesh=None,
+    policy: str = "memtierd",
+    backend: str = "ipt",
+    use_gpac: bool = True,
+    max_batches: int = 4,
+    budget: int = 64,
+    slack: int = 1,
+    windows_per_step: int = 0,
+    strict_wps: bool = False,
+    collect: tuple[str, ...] = ("hits", "near_blocks"),
+    kernel_backend: str | None = None,
+    arbitration_stride: int | None = None,
+    device=None,
+) -> tuple[ChurnState, dict]:
+    """Drive every window of ``source`` through the steady-state churn
+    engine: :func:`run`'s window loop and chunking (``windows_per_step``),
+    with a :class:`ChurnState` carry and a deterministic fault schedule
+    (``core.faults``) applied window by window: guests crash and restart
+    through the activity mask, the near tier shrinks through the pressure
+    controller, and telemetry windows drop. Results do not depend on the
+    chunking; with ``faults=None`` and all lanes active the run is
+    bit-identical to :func:`run`.
+
+    Reads the carry's epoch, window and capacity from the device once per
+    call. Returns ``(cs, series)``; beyond the collectors the series always
+    carries ``active`` (bool[n_windows, n_guests]), ``near_cap`` and
+    ``pressure`` (int32[n_windows])."""
+    if not isinstance(cs, ChurnState):
+        raise TypeError(
+            f"run_churn needs a ChurnState carry (init_churn), got "
+            f"{type(cs).__name__}")
+    if mesh is not None:
+        raise _not_ported("run_churn over a device mesh (mesh=)", 13)
+    dev = _check_device(cs.state, device)
+    source = _as_source(source)
+    spec = _with_overrides(spec, kernel_backend, arbitration_stride)
+    collect = _validate(spec, source, collect)
+    n_w = source.n_windows
+    if n_w == 0:
+        return cs, {}
+    epoch, w0, carried_cap = torch.stack(
+        [cs.state.epoch, cs.window, cs.near_cap]).tolist()
+    ft = _resolve_fault_tables(spec, carried_cap, faults, n_w, w0)
+    by_window = np.ascontiguousarray(
+        np.transpose(source.traces, (1, 0, 2)), dtype=np.int32)
+    wps = _round_wps(n_w, windows_per_step, strict_wps)
+    chunks = []
+    for s in range(0, n_w, wps):
+        acc = torch.from_numpy(by_window[s : s + wps]).to(dev)
+        outs = []
+        for i in range(acc.shape[0]):
+            w = s + i
+            frow = dict(crash=ft.crash[w], restart=ft.restart[w],
+                        near_cap=ft.near_cap[w], drop=bool(ft.drop[w]))
+            cs, out = _churn_window(spec, cs, acc[i], frow, epoch, policy,
+                                    backend, use_gpac, max_batches, budget,
+                                    slack, collect)
+            epoch += 1
+            outs.append(out)
+        chunks.append({k: torch.stack([o[k] for o in outs]).cpu().numpy()
+                       for k in outs[0]})
+    series = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    return cs, series
+
+
+def step_churn(
+    spec: EngineSpec,
+    cs: ChurnState,
+    accesses,  # int32[n_guests, k] guest-local ids, -1 padded
+    *,
+    faults_row: dict | None = None,
+    mesh=None,
+    policy: str = "memtierd",
+    backend: str = "ipt",
+    use_gpac: bool = True,
+    max_batches: int = 4,
+    budget: int = 64,
+    slack: int = 1,
+    collect: tuple[str, ...] = ("hits", "near_blocks"),
+    arbitration_stride: int | None = None,
+) -> tuple[ChurnState, dict]:
+    """One churn window (:func:`step` dispatches here when handed a
+    :class:`ChurnState`). ``faults_row`` injects this window's faults:
+    optional keys ``crash`` / ``restart`` (bool[n_guests]), ``near_cap``
+    (int; defaults to the capacity in force) and ``drop`` (bool). A
+    no-fault step loop is bit-identical to :func:`run` and to one
+    :func:`run_churn` call."""
+    acc = (accesses.cpu().numpy() if isinstance(accesses, torch.Tensor)
+           else np.asarray(accesses))
+    if acc.ndim != 2 or acc.shape[0] != spec.n_guests:
+        raise ValueError(
+            f"accesses must be [n_guests={spec.n_guests}, k], got {acc.shape}")
+    row = dict(faults_row or {})
+    unknown = set(row) - {"crash", "restart", "near_cap", "drop"}
+    if unknown:
+        raise ValueError(
+            f"unknown faults_row keys {sorted(unknown)} (valid: crash, "
+            f"restart, near_cap, drop)")
+    n_g = spec.n_guests
+    crash = np.zeros((1, n_g), bool)
+    crash[0] = np.asarray(row.get("crash", False), bool)
+    restart = np.zeros((1, n_g), bool)
+    restart[0] = np.asarray(row.get("restart", False), bool)
+    cap = int(row["near_cap"]) if "near_cap" in row else int(cs.near_cap)
+    ft = faults_mod.FaultTables(
+        start=int(cs.window), crash=crash, restart=restart,
+        near_cap=np.asarray([cap], np.int32),
+        drop=np.asarray([bool(row.get("drop", False))]),
+    )
+    cs, series = run_churn(
+        spec, cs, ArrayTrace(acc[:, None, :]), faults=ft, mesh=mesh,
+        policy=policy, backend=backend, use_gpac=use_gpac,
+        max_batches=max_batches, budget=budget, slack=slack, collect=collect,
+        arbitration_stride=arbitration_stride, device=cs.state.device)
+    return cs, {k: v[0] for k, v in series.items()}
+
+
+# --------------------------------------------------------------------------
+# sequential per-guest reference (the ragged equivalence oracle)
+# --------------------------------------------------------------------------
+def step_reference(
+    spec: EngineSpec,
+    state: TieredState,
+    accesses: torch.Tensor,  # int32[n_guests, k] guest-local ids, -1 padded
+    policy: str = "memtierd",
+    backend: str = "ipt",
+    use_gpac: bool = True,
+    max_batches: int = 4,
+    budget: int = 64,
+) -> tuple[TieredState, dict]:
+    """One window in the sequential formulation: each guest translates,
+    records and runs its own GPAC daemon (confined to its segment by
+    ``allow``/``hp_range``, with its own CL) one after another, through the
+    spec's ``kernel_backend``. Kept as the equivalence oracle for
+    :func:`step` / :func:`run` (the host tick ignores the stride, as in the
+    reference)."""
+    cfg = spec.cfg
+    kb = spec.kernel_backend
+    dev = state.device
+    near_hits, far_hits = [], []
+    logical_idx = torch.arange(cfg.n_logical, dtype=torch.int32, device=dev)
+    for g in range(spec.n_guests):
+        lo, _ = spec.logical_range(g)
+        ids = torch.where(accesses[g] >= 0, accesses[g] + lo, -1)
+        slot, _, valid = asp.translate(cfg, state, ids)
+        near_hits.append((valid & (slot < cfg.n_near)).sum())
+        far_hits.append((valid & (slot >= cfg.n_near)).sum())
+        state = asp.record_accesses(cfg, state, ids, kernel_backend=kb)
+    if use_gpac:
+        for g in range(spec.n_guests):
+            lo, hi = spec.logical_range(g)
+            allow = (logical_idx >= lo) & (logical_idx < hi)
+            state = gpac.gpac_maintenance(
+                cfg, state, backend, max_batches, spec.guest_cl(g),
+                allow=allow, hp_range=spec.hp_range(g), kernel_backend=kb)
+    state = tiering.tick(cfg, state, policy, budget=budget)
+    near = allocated_hp_mask(cfg, state) & (state.block_table < cfg.n_near)
+    near_blocks = [near[slice(*spec.hp_range(g))].sum() for g in range(spec.n_guests)]
+    out = {k: torch.stack(v).to(torch.int32) for k, v in (
+        ("near_hits", near_hits), ("far_hits", far_hits), ("near_blocks", near_blocks))}
+    state = telemetry.end_window(cfg, state)
+    return state, out
+
+
+def run_reference(
+    spec: EngineSpec,
+    state: TieredState,
+    traces: np.ndarray,
+    *,
+    device=None,
+    **kw,
+) -> tuple[TieredState, dict]:
+    """Per-window driver over :func:`step_reference` (one host sync per
+    window): the equivalence oracle for :func:`run` with the default
+    ``("hits", "near_blocks")`` collectors. The state must live on
+    ``device`` (CUDA unless named)."""
+    dev = _check_device(state, device)
+    traces = np.asarray(traces)
+    n_g, n_w, _ = traces.shape
+    series = {k: np.zeros((n_w, n_g), np.int32)
+              for k in ("near_hits", "far_hits", "near_blocks")}
+    acc = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(traces, (1, 0, 2)), dtype=np.int32)).to(dev)
+    for w in range(n_w):
+        state, out = step_reference(spec, state, acc[w], **kw)
+        for k in series:
+            series[k][w] = out[k].cpu().numpy()
+    return state, series

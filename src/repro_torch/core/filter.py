@@ -122,3 +122,22 @@ def select_batches_ragged(
                             spec.kernel_backend)
     return select_batches_from_rows(
         spec.cfg, score, tables.logical_pad, max_batches, spec.kernel_backend)
+
+
+def select_batches_per_guest(
+    cfg: GpacConfig,
+    state: TieredState,
+    hot: torch.Tensor,
+    max_batches: int,
+    cl: int | None,
+    n_guests: int,
+    logical_per_guest: int,
+) -> torch.Tensor:
+    """Deprecated symmetric wrapper over :func:`select_batches_ragged` (kept
+    for the old ``MultiGuest`` entry points)."""
+    from repro_torch.core.engine import symmetric_spec
+
+    if n_guests * logical_per_guest != cfg.n_logical:
+        raise ValueError("guest logical segments must tile the logical space")
+    return select_batches_ragged(
+        symmetric_spec(cfg, n_guests, cl=cl), state, hot, max_batches)

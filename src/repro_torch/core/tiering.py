@@ -2,8 +2,9 @@
 part of ``repro.core.tiering``).
 
 The host sees only huge-page telemetry and moves whole blocks between the
-near and far pools. ``memtierd``, ``autonuma`` and ``tpp`` are ported; the
-n-tier flows (``core/tiers.py``) and ``pressure_tick`` are not yet.
+near and far pools. ``memtierd``, ``autonuma`` and ``tpp`` are ported, with
+the two-tier near-memory pressure controller (:func:`pressure_tick`); the
+n-tier flows (``core/tiers.py``) are not yet.
 
 In place: :func:`swap_blocks` writes ``block_table``, ``slot_owner`` and
 both pools of the state handed in (see ``core.types``). It gathers the
@@ -206,3 +207,52 @@ def strided_tick(
     if (epoch + 1) % stride:
         return state
     return tick(cfg, state, policy, budget=budget, tiers=tiers)
+
+
+def pressure_tick(
+    cfg: GpacConfig,
+    state: TieredState,
+    near_cap,  # int, or int32[] tensor: effective near capacity (<= n_near)
+    engaged: torch.Tensor,  # bool[] hysteresis latch carried between windows
+    pressure: torch.Tensor,  # int32[] consecutive engaged windows
+    budget: int = 64,
+    slack: int = 1,
+    tiers=None,
+) -> tuple[TieredState, torch.Tensor, torch.Tensor]:
+    """Enforce an effective near capacity with two watermarks (the
+    reference's controller): when allocated near usage breaches ``near_cap``
+    it demotes the coldest allocated near blocks into unallocated far blocks
+    down to ``near_cap - slack``, at most ``budget`` per window. Returns
+    ``(state, engaged', pressure')``; ``pressure`` counts consecutive
+    engaged windows.
+
+    Usage never exceeds the physical ``n_near``, so with a host-side
+    ``near_cap >= n_near`` the controller cannot engage and the reference's
+    call is a value-exact no-op (a swap of k = 0 pairs); the port then
+    returns at once, with no device sync (a tensor ``near_cap`` always
+    takes the full path)."""
+    del engaged  # previous-window breach: carried for observers, not logic
+    if tiers is not None:
+        raise NotImplementedError(
+            "the n-tier pressure cascade (core/tiers.py) is not ported yet "
+            "(ROADMAP queue 1, item 12)")
+    dev = state.device
+    if not isinstance(near_cap, torch.Tensor) and near_cap >= cfg.n_near:
+        return (state, torch.zeros((), dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    alloc = allocated_hp_mask(cfg, state)
+    in_near = state.block_table < cfg.n_near
+    usage = (alloc & in_near).sum().to(torch.int32)
+    if isinstance(near_cap, torch.Tensor):
+        low = (near_cap - slack).clamp(min=0)
+    else:
+        low = max(int(near_cap) - slack, 0)
+    engaged = usage > near_cap
+    n_demote = torch.where(engaged, (usage - low).clamp(0, budget), 0)
+    score = _block_score(cfg, state)
+    far_ids, near_ids, k = _paired_ids(
+        ~alloc & ~in_near, torch.zeros_like(score), alloc & in_near, score,
+        budget)
+    state = swap_blocks(cfg, state, far_ids, near_ids, torch.minimum(k, n_demote))
+    pressure = torch.where(engaged, pressure + 1, 0).to(torch.int32)
+    return state, engaged, pressure

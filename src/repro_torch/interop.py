@@ -1,9 +1,10 @@
-"""Carry a state, a model's params or a decode cache across packages as
-numpy arrays.
+"""Carry a state, a churn carry, a model's params or a decode cache across
+packages as numpy arrays.
 
 A state travels as a dict of numpy arrays under ``TieredState``'s field
 names (those of the JAX package too), with ``stats`` a nested dict of 0-d
-arrays. Params and caches travel as the nested dicts the JAX package uses
+arrays; a churn carry as a dict under ``ChurnState``'s field names, its
+``state`` such a dict. Params and caches travel as the nested dicts the JAX package uses
 (``groups/layer0/attn/wq``, ``layers/layer0/k_pages``, ``btab``, ``lens``),
 with numpy leaves; a bfloat16 leaf may be an ``ml_dtypes`` bfloat16 array.
 The tests hand such trees to :func:`state_from_numpy`,
@@ -46,6 +47,27 @@ def state_to_numpy(state: TieredState) -> dict:
     """Every leaf of ``state`` as a numpy array (copied to the host)."""
     out = {k: getattr(state, k).cpu().numpy() for k in FIELDS if k != "stats"}
     out["stats"] = {k: v.cpu().numpy() for k, v in state.stats.items()}
+    return out
+
+
+CHURN_FIELDS = ("active", "window", "near_cap", "pressure", "engaged")
+
+
+def churn_from_numpy(d: dict, device=None):
+    """A ``ChurnState`` on ``device`` (CUDA unless named) holding copies of
+    the arrays in ``d``."""
+    from repro_torch.core.engine import ChurnState
+
+    dev = runtime.resolve_device(device)
+    return ChurnState(state=state_from_numpy(d["state"], dev),
+                      **{k: _to_torch(d[k], dev) for k in CHURN_FIELDS})
+
+
+def churn_to_numpy(cs) -> dict:
+    """Every leaf of a ``ChurnState`` as a numpy array (copied to the
+    host)."""
+    out = {k: getattr(cs, k).cpu().numpy() for k in CHURN_FIELDS}
+    out["state"] = state_to_numpy(cs.state)
     return out
 
 

@@ -277,10 +277,10 @@ class Engine:
 
 class TieringService:
     """The churn engine's serving front (tenants on guest lanes). Not ported:
-    it runs over the churn stepper and on-device trace synthesis."""
+    it runs over the churn stepper (ported) and on-device trace synthesis
+    (not yet)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "TieringService is not ported to PyTorch yet: it runs over the churn "
-            "engine (ROADMAP queue 1, item 11) and on-device trace synthesis "
-            "(item 10)")
+            "TieringService is not ported to PyTorch yet: it runs over "
+            "on-device trace synthesis (ROADMAP queue 1, items 10 and 14)")

@@ -6,7 +6,7 @@ Admission is page-budget-aware: a request is admitted only if its prompt plus
 maintenance runs on a fixed decode-step cadence (the paper's telemetry
 window). The pressure-aware admission of the reference (``BackoffConfig``,
 ``TenantQoS``, ``AdmissionQueue``) serves only ``TieringService``, which
-waits for the churn engine (ROADMAP queue 1, item 11).
+waits for on-device trace synthesis (ROADMAP queue 1, items 10 and 14).
 """
 from __future__ import annotations
 

@@ -70,11 +70,11 @@ def _setup(guests):
     return spec, jax_state_to_numpy(state), traces
 
 
-def _port_spec(jspec):
+def _port_spec(jspec, host=HOST):
     guests = [engine.GuestSpec(g.n_logical, cl=g.cl, gpa_slack=g.gpa_slack,
                                workload=g.workload, seed=g.seed)
               for g in jspec.guests]
-    spec, _ = engine.build(guests, engine.HostSpec(**HOST), device="cpu")
+    spec, _ = engine.build(guests, engine.HostSpec(**host), device="cpu")
     return spec
 
 
@@ -215,3 +215,27 @@ def test_spec_helpers_match():
                 == [[getattr(g, f) for f in guest_fields] for g in p.guests])
     with pytest.raises(ValueError, match="not divisible"):
         engine.symmetric_spec(cfg, 3)
+
+
+def test_snapshot_rounds_as_the_jitted_reference():
+    """ROADMAP Fault 1: inside jax.jit the reference's snapshot collector
+    divides by the constant n_near as a multiply by float32(1 / n_near); at
+    n_near 102 that differs from the true quotient in the last bit, and the
+    port's collector must round the same way."""
+    workloads = ("ocean_ncp", "liblinear", "hash", "redis", "memcached", "masim")
+    host = dict(hp_ratio=16, near_fraction=0.3, base_elems=3, cl=8, ipt_windows=3,
+                ipt_min_hits=2, reconsolidate_cooldown=0)
+    jspec, jstate = jengine.build(
+        [jengine.GuestSpec(900, cl=4 + g, workload=w, seed=g) for g, w in enumerate(workloads)],
+        jengine.HostSpec(**host))
+    assert jspec.cfg.n_near == 102
+    traces = jengine.guest_traces(jspec, 8, 4096)
+    state0 = jax_state_to_numpy(jstate)
+    kw = dict(policy="tpp", max_batches=8, budget=5, collect=("near_blocks", "snapshot"))
+    ref_state, ref_series = jengine.run(jspec, jstate, traces, **kw)
+    state, series = engine.run(_port_spec(jspec, host), interop.state_from_numpy(state0, device="cpu"),
+                               traces, device="cpu", windows_per_step=4, **kw)
+    assert_same_state(jax_state_to_numpy(ref_state), interop.state_to_numpy(state))
+    assert_same_series(ref_series, series)
+    exact = series["near_blocks"].sum(axis=1).astype(np.float32) / np.float32(102)
+    assert (series["near_capacity_used"] != exact).any()  # the inputs show the fault

@@ -29,6 +29,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         engine.run(spec, st, np.zeros((1, 1, 4), np.int32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.run_series(spec, st, np.zeros((1, 1, 4), np.int32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.run_reference(spec, st, np.zeros((1, 1, 4), np.int32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.init_churn(spec)
+    cs = engine.init_churn(spec, st, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.run_churn(spec, cs, np.zeros((1, 1, 4), np.int32))
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:

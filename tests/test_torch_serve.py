@@ -279,7 +279,7 @@ def test_entry_points_refuse_cpu_fallback(models, monkeypatch):
         model.init(seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_cache(1, 16)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="items 10 and 14"):
         engine.TieringService()
 
 
