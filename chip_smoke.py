@@ -85,8 +85,33 @@ first use), then, printing one JSON line per phase:
    attention mass, two maintenance windows; read_groups must return what
    was appended bit for bit); each with GPAC on and off.
 
-An engine kernel row's ``launches`` counts the engine's main path (the
-memtierd run); ``launches_by_path`` adds the churn and reference runs. Every
+11. synth -- every workload's on-device window function (``data.traces``)
+   in one plan, one row each at 3,276,800 pages, 4 windows of 65,536
+   accesses made on the card and on the CPU: they must be equal bit for bit
+   (the threefry streams, erf_inv and powf are built from exactly rounded
+   operations, so the device does not matter); then one window of the churn
+   fleet's mixed five-workload synthesis at 524,288 accesses per guest,
+   timed on the card;
+12. engine_synth -- phase 4's Redis guest over ``SynthTrace(16,
+   2,097,152)``: memtierd twice through the kernels and twice plain, in
+   turns, identical, K1-K4 launched in each kernel run; the same accesses
+   as an ArrayTrace (the port's ``synth_generate``) must give the same state
+   and series; s/window for both sources, and 4 SynthTrace windows under
+   torch.profiler (device idle share);
+13. churn_synth -- phase 6's fleet over a mixed ``SynthTrace(12, 524,288)``
+   under phase 6's fault schedule, through the kernels and plain,
+   identical; with the count of ocean_ncp's window-0 accesses that the
+   reference's int32 stride wraps off ``floor(i * n / k)``;
+14. service -- ``TieringService`` on that fleet for 12 ticks (six tenants
+   into five lanes at tick 0, one with ``tier_floor`` 1; one departure at
+   tick 4; the near tier cut to 0.7 x n_near at tick 5 and restored at tick
+   9), through the kernels and plain: identical ``stats()`` after every
+   tick, and the sixth tenant admitted only after the departure.
+
+The phases run in the order 1-5, 11, 12, 6, 7, 13, 14, 8-10. An engine
+kernel row's ``launches`` counts the engine's main path (the memtierd run);
+``launches_by_path`` adds the churn, reference, engine_synth, churn_synth
+and service runs. Every
 kernel row carries ``floor_aware_bound_ms``: the launch floor (this run's
 time of hot_count on the serve path's 1,632 bytes, ``launch_floor_ms``) plus
 its bound. The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -791,6 +816,240 @@ def reference_phase(spec, trace: np.ndarray, device) -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------------------
+# 11-14. on-device synthesis: the window functions on the card and the CPU,
+# then the engine, the churn engine and the service over SynthTrace
+# --------------------------------------------------------------------------
+SYNTH_K, SYNTH_WINDOWS = 65_536, 4
+SYNTH_TIMED = 5  # timed windows of synth_accesses alone
+
+
+def cuda_seconds(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def synth_window_ms(plan, setup) -> float:
+    """The median time of one window of synth_accesses on the card."""
+    return statistics.median(
+        cuda_seconds(lambda: traces.synth_accesses(plan, setup, w))[1] * 1e3
+        for w in range(SYNTH_TIMED))
+
+
+def synth_phase(churn_spec, device) -> dict:
+    """Every workload's window function in one plan, one row each (gid =
+    row, seed 0, 3,276,800 pages), 4 windows of 65,536 accesses made on the
+    card and on the CPU: equal bit for bit, in range. Then the churn fleet's
+    mixed five-workload synthesis, one window timed on the card."""
+    names = traces.workloads()
+    plan = traces.SynthPlan(tuple(sorted(names)), SYNTH_K, HOST["hp_ratio"], N_LOGICAL)
+    n = len(names)
+    tables = dict(seeds=np.zeros(n, np.int32), gids=np.arange(n, dtype=np.int32),
+                  wid=np.array([plan.workload_set.index(w) for w in names], np.int32),
+                  n_logical=np.full(n, N_LOGICAL, np.int32))
+    acc, secs = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        setup = traces.synth_setup(plan, tables, dev)
+        acc[where] = np.stack([traces.synth_accesses(plan, setup, w).cpu().numpy()
+                               for w in range(SYNTH_WINDOWS)])
+        secs[where] = time.perf_counter() - t0
+        del setup
+    mismatches = {w: int((acc["card"][:, i] != acc["cpu"][:, i]).sum())
+                  for i, w in enumerate(names)}
+    if any(mismatches.values()):
+        raise AssertionError(f"synth: card and CPU accesses differ: {mismatches}")
+    if ((acc["card"] < 0) | (acc["card"] >= N_LOGICAL)).any():
+        raise AssertionError("synth: an access outside the guest")
+    distinct = {w: int(np.unique(acc["card"][:, i]).size) for i, w in enumerate(names)}
+    del acc
+    plan, tables = engine._bind_synth(churn_spec, engine.SynthTrace(1, CHURN_APW))
+    setup, setup_s = cuda_seconds(lambda: traces.synth_setup(plan, tables, device))
+    window_ms = synth_window_ms(plan, setup)
+    del setup
+    return dict(phase="synth", workloads=list(names), n_logical=N_LOGICAL, k=SYNTH_K,
+                windows=SYNTH_WINDOWS, mismatches_card_vs_cpu=mismatches,
+                distinct_pages=distinct, seconds_card=secs["card"], seconds_cpu=secs["cpu"],
+                fleet=list(plan.workload_set), fleet_k=CHURN_APW,
+                fleet_setup_s=setup_s, fleet_window_ms=window_ms, card_equals_cpu=True)
+
+
+def engine_synth_phase(spec, device) -> tuple[dict, dict]:
+    """The engine phase's Redis guest over SynthTrace(16, 2,097,152): memtierd
+    through the kernels and the plain versions in turns, every run held to
+    the first bit for bit; then the same accesses as an ArrayTrace (the
+    port's synth_generate) through the kernels, which must give the same
+    state and series; then 4 SynthTrace windows under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    source = engine.SynthTrace(N_WINDOWS, APW)
+    base = filled_state(spec, device)
+    ref = ref_series = launches = peak = None
+    secs = {"auto": [], "torch": []}
+    for backend in ("auto", "torch", "torch", "auto"):
+        if ref is None:
+            torch.cuda.reset_peak_memory_stats()
+        registry.reset_launch_counts()
+        state, series, t = timed_run(spec, clone_state(base), source, "memtierd", backend)
+        counts = registry.launch_counts()
+        secs[backend].append(t / N_WINDOWS)
+        if backend == "torch" and any(counts.values()):
+            raise AssertionError(f"engine_synth: the plain run launched kernels: {counts}")
+        if backend == "auto":
+            missing = [k for k in ENGINE_KERNELS if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"engine_synth: kernels never launched: {missing}")
+            launches = launches or counts
+        if ref is None:
+            ref, ref_series, peak = state, series, torch.cuda.max_memory_allocated()
+            continue
+        assert_same_states(ref, state)
+        assert_same_series(ref_series, series, "engine_synth")
+        del state
+    arr, gen_s = cuda_seconds(lambda: traces.synth_generate(traces.TraceSpec(
+        "redis", N_LOGICAL, HOST["hp_ratio"], N_WINDOWS, APW, seed=0), device=device)[None])
+    state, series, t_arr = timed_run(spec, clone_state(base), arr, "memtierd", "auto")
+    assert_same_states(ref, state)
+    assert_same_series(ref_series, series, "engine_synth: ArrayTrace")
+    del state
+    hits = int(ref_series["near_hits"].sum() + ref_series["far_hits"].sum())
+    if hits != int((arr >= 0).sum()):
+        raise AssertionError("engine_synth: hit counts do not add up to the accesses")
+    check_payload(spec, ref)
+    stats = {k: int(v) for k, v in ref.stats.items()}
+    del ref, arr
+    state = clone_state(base)
+    del base
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.run(spec, state, engine.SynthTrace(PROFILED_WINDOWS, APW), policy="memtierd",
+                   kernel_backend="auto", device=device, **RUN)
+        torch.cuda.synchronize()
+    del state
+    plan, tables = engine._bind_synth(spec, source)
+    setup, setup_s = cuda_seconds(lambda: traces.synth_setup(plan, tables, device))
+    window_ms = synth_window_ms(plan, setup)
+    del setup
+    return dict(
+        phase="engine_synth", policy="memtierd", windows=N_WINDOWS, k=APW,
+        s_per_window_synth=statistics.median(secs["auto"]),
+        s_per_window_synth_plain=statistics.median(secs["torch"]),
+        s_per_window_runs=secs, s_per_window_array=t_arr / N_WINDOWS,
+        synth_generate_s=gen_s, synth_setup_s=setup_s, synth_window_ms=window_ms,
+        launches=launches, peak_gb=peak / 1e9, stats=stats,
+        profiled=device_summary(prof, PORT_KERNELS, PROFILED_WINDOWS, "window"),
+        identical=True, synth_equals_array=True, payload_intact=True), launches
+
+
+def churn_synth_phase(spec, device) -> tuple[dict, dict]:
+    """The churn fleet over a mixed SynthTrace(12, 524,288) under the churn
+    phase's fault schedule, through the kernels and the plain versions,
+    identical; and ocean_ncp's window-0 positions that the reference's int32
+    stride wraps away from floor(i * n / k)."""
+    sched = churn_schedule(spec)
+    source = engine.SynthTrace(CHURN_WINDOWS, CHURN_APW)
+    runs = {}
+    for backend in ("auto", "torch"):
+        cs, series, t, counts, peak = churn_run(spec, source, sched, backend, device)
+        runs[backend] = (cs, series, t / CHURN_WINDOWS, counts, peak)
+        if backend == "auto":
+            missing = [k for k in ENGINE_KERNELS if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"churn_synth: kernels never launched: {missing}")
+        elif any(counts.values()):
+            raise AssertionError(f"churn_synth: the plain run launched kernels: {counts}")
+        if backend == "torch":
+            assert_same_churn(runs["auto"][0], cs)
+            assert_same_series(runs["auto"][1], series, "churn_synth")
+        del cs
+    series = runs["auto"][1]
+    g = {w: i for i, w in enumerate(CHURN_WORKLOADS)}
+    want_active = np.ones((CHURN_WINDOWS, spec.n_guests), bool)
+    want_active[3:7, g["memcached"]] = False
+    if not np.array_equal(series["active"], want_active) or series["pressure"][4] < 1:
+        raise AssertionError("churn_synth: the schedule's effects are missing")
+    # window 0 of the ocean_ncp guest against the unwrapped stride
+    plan, tables = engine._bind_synth(spec, source)
+    setup = traces.synth_setup(plan, tables, device)
+    acc0 = traces.synth_accesses(plan, setup, 0)[g["ocean_ncp"]].cpu().numpy().astype(np.int64)
+    del setup
+    n = spec.guests[g["ocean_ncp"]].n_logical
+    half = int(np.float32(n) * np.float32(0.6)) // 2
+    exact = np.minimum(acc0[0] + 2 * (np.arange(CHURN_APW, dtype=np.int64) * half // CHURN_APW),
+                       n - 1)
+    line = dict(
+        phase="churn_synth", windows=CHURN_WINDOWS, k=CHURN_APW,
+        workloads=list(CHURN_WORKLOADS),
+        s_per_window=runs["auto"][2], s_per_window_plain=runs["torch"][2],
+        launches=runs["auto"][3], peak_gb=max(r[4] for r in runs.values()) / 1e9,
+        active=series["active"].astype(int).tolist(), pressure=series["pressure"].tolist(),
+        near_blocks=series["near_blocks"].tolist(),
+        ocean_window0_accesses_off_exact_stride=int((acc0 != exact).sum()),
+        identical=True)
+    launches = runs["auto"][3]
+    del runs
+    return line, launches
+
+
+SERVICE_TICKS = 12
+
+
+def service_script(svc, n_near: int) -> list:
+    """Six tenants into five lanes at tick 0 (tenant 12 with tier_floor 1),
+    tenant 11 departs at tick 4, the near tier is cut to 0.7 x n_near at
+    tick 5 and restored at tick 9; stats() after every tick."""
+    hist = []
+    for t in range(6):
+        svc.submit(10 + t, tier_floor=1 if t == 2 else 0)
+    for tick in range(SERVICE_TICKS):
+        if tick == 4:
+            svc.depart(11)
+        if tick == 5:
+            svc.set_near_cap(int(0.7 * n_near))
+        if tick == 9:
+            svc.set_near_cap(None)
+        svc.tick()
+        hist.append(svc.stats())
+    return hist
+
+
+def service_phase(spec, device) -> tuple[dict, dict]:
+    """TieringService on the churn fleet for 12 ticks of the script above,
+    through the kernels and the plain versions: identical stats() after
+    every tick; the sixth tenant waits for the departure."""
+    runs = {}
+    for backend in ("auto", "torch"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        registry.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        svc = serve_engine.TieringService(spec, accesses_per_window=CHURN_APW,
+                                          kernel_backend=backend, device=device)
+        hist, t = cuda_seconds(lambda: service_script(svc, spec.cfg.n_near))
+        runs[backend] = (hist, t / SERVICE_TICKS, registry.launch_counts(),
+                         torch.cuda.max_memory_allocated())
+        del svc
+    hist, counts = runs["auto"][0], runs["auto"][2]
+    if runs["torch"][0] != hist:
+        raise AssertionError("service: stats() differ between the kernel and plain runs")
+    missing = [k for k in ENGINE_KERNELS if counts[k] == 0]
+    if missing or any(runs["torch"][2].values()):
+        raise AssertionError(f"service: launches {counts} / {runs['torch'][2]}")
+    sixth = hist[-1]["tenants"][15]
+    if [h["resident"] for h in hist[:4]] != [5] * 4 or sixth["admission_latency"] < 4:
+        raise AssertionError(f"service: the sixth tenant got in before the departure: {hist}")
+    return dict(
+        phase="service", ticks=SERVICE_TICKS, lanes=spec.n_guests, tenants=6,
+        k=CHURN_APW, s_per_tick=runs["auto"][1], s_per_tick_plain=runs["torch"][1],
+        launches=counts, peak_gb=max(r[3] for r in runs.values()) / 1e9,
+        sixth_tenant_admission_latency=sixth["admission_latency"],
+        pressure=[h["pressure"] for h in hist], near_cap=[h["near_cap"] for h in hist],
+        resident=[h["resident"] for h in hist], stats=hist[-1], identical=True), counts
+
+
+# --------------------------------------------------------------------------
 # 8. serving: qwen2-0.5b at full width over the GPAC-tiered paged KV cache
 # --------------------------------------------------------------------------
 SERVE = dict(max_seqs=8, max_seq_len=2048, page_size=16, pages_per_block=4,
@@ -1236,19 +1495,36 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     churn_spec = churn_fleet(device)
+    emit(synth_phase(churn_spec, device))
+    engine_synth_line, engine_synth_launches = engine_synth_phase(spec, device)
+    emit(engine_synth_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     churn_trace = engine.guest_traces(churn_spec, CHURN_WINDOWS, CHURN_APW)
     churn_line, churn_launches = churn_phase(churn_spec, churn_trace, device)
     emit(churn_line)
     torch.cuda.empty_cache()
     reference_line, reference_launches = reference_phase(churn_spec, churn_trace, device)
     emit(reference_line)
-    del churn_spec, churn_trace
+    del churn_trace
+    gc.collect()
+    torch.cuda.empty_cache()
+    churn_synth_line, churn_synth_launches = churn_synth_phase(churn_spec, device)
+    emit(churn_synth_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    service_line, service_launches = service_phase(churn_spec, device)
+    emit(service_line)
+    del churn_spec
+    gc.collect()
     torch.cuda.empty_cache()
     for row in kernel_rows:
         row["launches"] = main_launches[row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in (
             ("engine", main_launches), ("churn", churn_launches),
-            ("reference", reference_launches))}
+            ("reference", reference_launches), ("engine_synth", engine_synth_launches),
+            ("churn_synth", churn_synth_launches), ("service", service_launches))}
 
     model, params = serve_model(device)
     serve_line, serve_eng, serve_launches = serve_phase(model, params, device)

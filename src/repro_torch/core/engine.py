@@ -7,10 +7,13 @@
   mapping each guest to its logical and GPA huge-page ranges. The padded
   tables are built once per spec and device and kept as device tensors.
 
-:func:`run` drives an :class:`ArrayTrace` window by window: a Python loop
-over windows (PyTorch runs eagerly, so there is no scan to fuse), with the
+:func:`run` drives a trace source window by window: a Python loop over
+windows (PyTorch runs eagerly, so there is no scan to fuse), with the
 collector series stacked on the device and copied to the host once per
-``windows_per_step`` chunk. Entry points (:func:`build`,
+``windows_per_step`` chunk. The source is an :class:`ArrayTrace` (a host
+array, uploaded once per chunk) or a :class:`SynthTrace` (each window's
+accesses made on the device from the guests' workload identities,
+``data.traces``' window functions). Entry points (:func:`build`,
 :func:`init_engine_state`, :func:`run`, :func:`run_series`) run on CUDA
 unless the caller passes ``device="cpu"``; without a CUDA device they raise.
 
@@ -25,9 +28,8 @@ schedule (``core.faults``) and the pressure controller
 the equivalence oracle.
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-items: on-device trace synthesis (:class:`SynthTrace`), the sharded runs
-(:func:`run_sharded`, and ``mesh=`` for the churn engine), n-tier hosts and
-the ``tco`` collector.
+items: the sharded runs (:func:`run_sharded`, and ``mesh=`` for the churn
+engine), n-tier hosts and the ``tco`` collector.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from repro_torch.core import address_space as asp
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import gpac, metrics, telemetry, tiering
 from repro_torch.core.types import GpacConfig, TieredState, allocated_hp_mask, init_state
+from repro_torch.data import traces as tr
 from repro_torch.kernels import registry as kernels_registry
 from repro_torch.kernels import runtime
 
@@ -295,8 +298,16 @@ def symmetric_spec(cfg: GpacConfig, n_guests: int, cl: int | None = None) -> Eng
 # --------------------------------------------------------------------------
 # trace sources
 # --------------------------------------------------------------------------
+class TraceSource:
+    """What drives the engine's windows: an :class:`ArrayTrace` (a host
+    array; raw arrays passed to the drivers are wrapped in one) or a
+    :class:`SynthTrace` (accesses made on the device window by window, so
+    no ``[n_guests, n_windows, k]`` array ever exists). Every source has
+    ``n_windows``."""
+
+
 @dataclasses.dataclass(frozen=True)
-class ArrayTrace:
+class ArrayTrace(TraceSource):
     """A packed per-guest trace (``pack_traces`` / ``guest_traces``
     output): ``int32[n_guests, n_windows, k]`` guest-local ids, -1 padded."""
 
@@ -310,11 +321,106 @@ class ArrayTrace:
         return self.traces.shape[1]
 
 
-class SynthTrace:
-    """On-device workload synthesis: not ported yet."""
+@dataclasses.dataclass(frozen=True)
+class SynthTrace(TraceSource):
+    """On-device workload synthesis for ``n_windows`` windows of
+    ``accesses_per_window`` accesses each.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("SynthTrace (on-device trace synthesis)", 10)
+    ``workloads`` / ``seeds`` default to the guests' own :class:`GuestSpec`
+    identities at bind time; pass tuples (one entry per guest) to override
+    them. ``partitionable`` is JAX's threefry bit layout the streams
+    reproduce (``data.prng``)."""
+
+    n_windows: int
+    accesses_per_window: int
+    workloads: tuple[str, ...] | None = None
+    seeds: tuple[int, ...] | None = None
+    partitionable: bool = True
+
+    def __post_init__(self):
+        if self.n_windows < 0:
+            raise ValueError(f"n_windows must be >= 0, got {self.n_windows}")
+        if self.accesses_per_window < 1:
+            raise ValueError(
+                f"accesses_per_window must be >= 1, got "
+                f"{self.accesses_per_window}")
+        if self.workloads is not None:
+            object.__setattr__(self, "workloads", tuple(self.workloads))
+        if self.seeds is not None:
+            object.__setattr__(self, "seeds", tuple(self.seeds))
+
+
+def as_trace_source(x) -> TraceSource:
+    """Coerce a driver input to a :class:`TraceSource` (arrays and lists
+    wrap as :class:`ArrayTrace`)."""
+    if isinstance(x, TraceSource):
+        return x
+    if isinstance(x, (np.ndarray, list, tuple)) or hasattr(x, "__array__"):
+        return ArrayTrace(np.asarray(x))
+    raise TypeError(
+        f"expected a TraceSource or a packed trace array, got {type(x).__name__}")
+
+
+def _coerce_source(source) -> TraceSource:
+    if source is None:
+        raise TypeError("run() needs a trace source (ArrayTrace / SynthTrace)")
+    return as_trace_source(source)
+
+
+def _bind_synth(spec: EngineSpec, synth: SynthTrace):
+    """Bind a :class:`SynthTrace` to a spec's guests: the static
+    :class:`repro_torch.data.traces.SynthPlan` (distinct workload set and
+    shapes) and the per-guest numpy tables (seed, global guest id, workload
+    index, size)."""
+    n_g = spec.n_guests
+    workloads = synth.workloads or tuple(g.workload for g in spec.guests)
+    seeds = synth.seeds if synth.seeds is not None else tuple(g.seed for g in spec.guests)
+    if len(workloads) != n_g or len(seeds) != n_g:
+        raise ValueError(
+            f"SynthTrace workloads/seeds must have one entry per guest "
+            f"(n_guests={n_g}), got {len(workloads)}/{len(seeds)}")
+    for name in workloads:
+        tr.get_workload(name)  # fail fast, listing the live set
+    wset = tuple(sorted(set(workloads)))
+    plan = tr.SynthPlan(
+        workload_set=wset,
+        accesses_per_window=synth.accesses_per_window,
+        hp_ratio=spec.cfg.hp_ratio,
+        max_logical=spec.max_logical,
+        partitionable=synth.partitionable,
+    )
+    tables = dict(
+        seeds=np.asarray(seeds, np.int32),
+        gids=np.arange(n_g, dtype=np.int32),
+        wid=np.asarray([wset.index(w) for w in workloads], np.int32),
+        n_logical=np.asarray([g.n_logical for g in spec.guests], np.int32),
+    )
+    return plan, tables
+
+
+def _window_feed(spec: EngineSpec, source: TraceSource, dev: torch.device,
+                 first_window: int) -> Callable:
+    """``feed(s, e)`` yields the accesses of this call's windows ``s`` to
+    ``e - 1``, each ``int32[n_guests, k]`` on ``dev``. An ArrayTrace chunk
+    goes to the device in one copy; a SynthTrace window is made on the
+    device from its absolute index ``first_window + i``, so any chunking
+    gives the same streams. The synthesis setup (keys, scatter tables) is
+    deterministic, so it is built once per call, where the reference
+    rebuilds it per chunk."""
+    if isinstance(source, SynthTrace):
+        plan, tables = _bind_synth(spec, source)
+        setup = tr.synth_setup(plan, tables, dev)
+
+        def feed(s, e):
+            for i in range(s, e):
+                yield tr.synth_accesses(plan, setup, first_window + i)
+    else:
+        by_window = np.ascontiguousarray(
+            np.transpose(source.traces, (1, 0, 2)), dtype=np.int32)
+
+        def feed(s, e):
+            yield from torch.from_numpy(by_window[s:e]).to(dev)
+    return feed
 
 
 def pack_traces(per_guest: list[np.ndarray]) -> np.ndarray:
@@ -333,8 +439,6 @@ def pack_traces(per_guest: list[np.ndarray]) -> np.ndarray:
 def guest_traces(spec: EngineSpec, n_windows: int, accesses_per_window: int) -> np.ndarray:
     """Each guest's trace from its GuestSpec workload/seed (numpy
     generators), packed; identical guests share one generation."""
-    from repro_torch.data import traces as tr
-
     cache: dict = {}
 
     def one(g: GuestSpec) -> np.ndarray:
@@ -496,23 +600,13 @@ def _check_device(state: TieredState, device) -> torch.device:
     return have
 
 
-def _as_source(source) -> ArrayTrace:
+def _validate(spec: EngineSpec, source: TraceSource, collect) -> tuple[str, ...]:
     if isinstance(source, ArrayTrace):
-        return source
-    if type(source).__name__ == "SynthTrace":  # e.g. the JAX package's
-        raise _not_ported("SynthTrace (on-device trace synthesis)", 10)
-    if isinstance(source, (np.ndarray, list, tuple)) or hasattr(source, "__array__"):
-        return ArrayTrace(np.asarray(source))
-    raise TypeError(
-        f"expected an ArrayTrace or a packed trace array, got {type(source).__name__}")
-
-
-def _validate(spec: EngineSpec, source: ArrayTrace, collect) -> tuple[str, ...]:
-    traces = source.traces
-    if traces.ndim != 3 or traces.shape[0] != spec.n_guests:
-        raise ValueError(
-            f"traces must be [n_guests={spec.n_guests}, n_windows, k], got "
-            f"{traces.shape}")
+        traces = source.traces
+        if traces.ndim != 3 or traces.shape[0] != spec.n_guests:
+            raise ValueError(
+                f"traces must be [n_guests={spec.n_guests}, n_windows, k], got "
+                f"{traces.shape}")
     collect = tuple(collect)
     for name in collect:
         get_collector(name)  # fail fast on unknown collectors
@@ -560,7 +654,7 @@ def step(
 def run(
     spec: EngineSpec,
     state: TieredState,
-    source: ArrayTrace | np.ndarray,
+    source: TraceSource | np.ndarray,
     *,
     policy: str = "memtierd",
     backend: str = "ipt",
@@ -576,33 +670,34 @@ def run(
 ) -> tuple[TieredState, dict]:
     """Drive every window of ``source`` through the engine.
 
-    ``windows_per_step`` sets how many windows share one host transfer: the
-    accesses of a chunk go to the device in one copy, and the collector
-    series of a chunk, stacked on the device, come back in one copy per
-    series (rounded as in the reference, see :func:`_round_wps`). The state
-    must live on ``device`` (CUDA unless named).
+    ``source`` is an :class:`ArrayTrace` (raw packed arrays are wrapped) or
+    a :class:`SynthTrace`, whose window ``w`` (counted from 0 in every call,
+    as in the reference) is made on the device. ``windows_per_step`` sets
+    how many windows share one host transfer: the accesses of an array
+    chunk go to the device in one copy, and the collector series of a
+    chunk, stacked on the device, come back in one copy per series (rounded
+    as in the reference, see :func:`_round_wps`). The state must live on
+    ``device`` (CUDA unless named).
 
     Returns ``(state, series)``: ``series[k]`` is a numpy array of shape
     ``[n_windows, ...]`` per collector output; ``{}`` when the source has no
     windows or ``collect`` is empty.
     """
     dev = _check_device(state, device)
-    source = _as_source(source)
+    source = _coerce_source(source)
     spec = _with_overrides(spec, kernel_backend, arbitration_stride)
     collect = _validate(spec, source, collect)
     n_w = source.n_windows
     if n_w == 0:
         return state, {}
-    by_window = np.ascontiguousarray(
-        np.transpose(source.traces, (1, 0, 2)), dtype=np.int32)
+    feed = _window_feed(spec, source, dev, 0)
     wps = _round_wps(n_w, windows_per_step, strict_wps)
     epoch = int(state.epoch)  # the only device read of the run's control flow
     chunks = []
     for s in range(0, n_w, wps):
-        acc = torch.from_numpy(by_window[s : s + wps]).to(dev)
         outs = []
-        for w in range(acc.shape[0]):
-            state, out = _window(spec, state, acc[w], epoch, policy, backend,
+        for acc in feed(s, min(s + wps, n_w)):
+            state, out = _window(spec, state, acc, epoch, policy, backend,
                                  use_gpac, max_batches, budget, collect)
             epoch += 1
             outs.append(out)
@@ -619,16 +714,17 @@ def run(
 def run_series(
     spec: EngineSpec,
     state: TieredState,
-    source: ArrayTrace | np.ndarray,
+    source: TraceSource | np.ndarray,
     tier_pair: str = "dram_nvmm",
     *,
     device=None,
     **kw,
 ) -> tuple[TieredState, dict]:
     """:func:`run` + the per-VM series the at-scale figures plot: near
-    blocks, per-window hit rate and modeled throughput."""
+    blocks, per-window hit rate and modeled throughput (any trace
+    source)."""
     n_g = spec.n_guests
-    source = _as_source(source)
+    source = _coerce_source(source)
     _validate(spec, source, ())
     if source.n_windows == 0:
         _check_device(state, device)
@@ -650,7 +746,7 @@ def run_series(
 
 
 def run_sharded(*args, **kwargs):
-    raise _not_ported("run_sharded (device-sharded runs)", 13)
+    raise _not_ported("run_sharded (device-sharded runs, ArrayTrace or SynthTrace)", 13)
 
 
 # --------------------------------------------------------------------------
@@ -822,7 +918,7 @@ def _resolve_fault_tables(
 def run_churn(
     spec: EngineSpec,
     cs: ChurnState,
-    source: ArrayTrace | np.ndarray,
+    source: TraceSource | np.ndarray,
     *,
     faults=None,  # FaultSchedule | FaultTables | None
     mesh=None,
@@ -846,7 +942,9 @@ def run_churn(
     through the activity mask, the near tier shrinks through the pressure
     controller, and telemetry windows drop. Results do not depend on the
     chunking; with ``faults=None`` and all lanes active the run is
-    bit-identical to :func:`run`.
+    bit-identical to :func:`run`. A :class:`SynthTrace` keys each window's
+    accesses on the absolute window index carried in ``cs.window``, so
+    repeated calls continue the streams of one long run.
 
     Reads the carry's epoch, window and capacity from the device once per
     call. Returns ``(cs, series)``; beyond the collectors the series always
@@ -859,7 +957,7 @@ def run_churn(
     if mesh is not None:
         raise _not_ported("run_churn over a device mesh (mesh=)", 13)
     dev = _check_device(cs.state, device)
-    source = _as_source(source)
+    source = _coerce_source(source)
     spec = _with_overrides(spec, kernel_backend, arbitration_stride)
     collect = _validate(spec, source, collect)
     n_w = source.n_windows
@@ -868,18 +966,15 @@ def run_churn(
     epoch, w0, carried_cap = torch.stack(
         [cs.state.epoch, cs.window, cs.near_cap]).tolist()
     ft = _resolve_fault_tables(spec, carried_cap, faults, n_w, w0)
-    by_window = np.ascontiguousarray(
-        np.transpose(source.traces, (1, 0, 2)), dtype=np.int32)
+    feed = _window_feed(spec, source, dev, w0)
     wps = _round_wps(n_w, windows_per_step, strict_wps)
     chunks = []
     for s in range(0, n_w, wps):
-        acc = torch.from_numpy(by_window[s : s + wps]).to(dev)
         outs = []
-        for i in range(acc.shape[0]):
-            w = s + i
+        for w, acc in enumerate(feed(s, min(s + wps, n_w)), start=s):
             frow = dict(crash=ft.crash[w], restart=ft.restart[w],
                         near_cap=ft.near_cap[w], drop=bool(ft.drop[w]))
-            cs, out = _churn_window(spec, cs, acc[i], frow, epoch, policy,
+            cs, out = _churn_window(spec, cs, acc, frow, epoch, policy,
                                     backend, use_gpac, max_batches, budget,
                                     slack, collect)
             epoch += 1

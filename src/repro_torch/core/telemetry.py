@@ -3,8 +3,9 @@
 
 Every backend maps raw per-window access counts to a ``bool[n_logical]``
 hot mask; the host only ever sees huge-page counts. ``ipt`` and ``damon``
-are ported; ``pebs`` draws from ``jax.random.binomial`` and waits for the
-port of JAX's generator (ROADMAP queue 1, item 10).
+are ported; ``pebs`` draws from ``jax.random.binomial`` (inversion and
+BTRS rejection loops), which ``data.prng`` does not reproduce yet (ROADMAP
+queue 1, item 10b).
 """
 from __future__ import annotations
 
@@ -74,7 +75,7 @@ def hot_mask_ipt(cfg: GpacConfig, state: TieredState) -> torch.Tensor:
 def hot_mask_pebs(cfg: GpacConfig, state: TieredState, **kw) -> torch.Tensor:
     raise NotImplementedError(
         "telemetry backend 'pebs' samples with jax.random.binomial and is not "
-        "ported yet (ROADMAP queue 1, item 10: JAX's generator in torch)")
+        "ported yet (ROADMAP queue 1, item 10b: jax.random.binomial in torch)")
 
 
 def hot_mask_damon(

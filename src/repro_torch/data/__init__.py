@@ -1,1 +1,1 @@
-"""Workload trace generators (numpy)."""
+"""Workload trace generators (numpy) and on-device synthesis (JAX's threefry streams in torch)."""

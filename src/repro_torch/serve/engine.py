@@ -16,6 +16,10 @@ The paper's full loop against a real model:
 The near/far split is bookkeeping (metrics). The attention-mass probe uses
 layer 0's projections.
 
+:class:`TieringService` is the churn engine's serving front: tenants
+admitted onto the guest lanes of an engine fleet through the pressure-aware
+``AdmissionQueue``, their accesses made on the device window by window.
+
 In place, where the reference rebuilds arrays: page moves, prefill's copy
 into a slot and every decode step write the cache's tensors; the placement
 state is consumed by the core functions, as everywhere in the port. As in
@@ -31,12 +35,14 @@ import torch
 
 from repro_torch.core import GpacConfig, gpac, init_state, telemetry, tiering
 from repro_torch.core import address_space as asp
+from repro_torch.core import engine as ce
 from repro_torch.core import metrics as core_metrics
+from repro_torch.data import traces as tr
 from repro_torch.kernels import registry as kernels_registry
 from repro_torch.kernels import runtime
 from repro_torch.models import layers as L
 from repro_torch.models.registry import Model
-from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+from repro_torch.serve.scheduler import AdmissionQueue, Request, Scheduler, SchedulerConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,12 +281,160 @@ class Engine:
         return core_metrics.snapshot(self.pcfg, self.pstate)
 
 
-class TieringService:
-    """The churn engine's serving front (tenants on guest lanes). Not ported:
-    it runs over the churn stepper (ported) and on-device trace synthesis
-    (not yet)."""
+# --------------------------------------------------------------------------
+# steady-state tiering service (the churn engine's serving front)
+# --------------------------------------------------------------------------
+# near and far: the port's EngineSpec has no n-tier part (ROADMAP queue 1,
+# item 12), so a tenant's tier floor is scored against two tiers
+_N_TIERS = 2
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TieringService is not ported to PyTorch yet: it runs over "
-            "on-device trace synthesis (ROADMAP queue 1, items 10 and 14)")
+
+class TieringService:
+    """Tenants arriving and departing on the churn engine's guest lanes.
+
+    Each admitted tenant occupies one guest lane of an
+    ``engine.EngineSpec`` fleet, its accesses made on the device from the
+    lane's workload identity (``data.traces``); admission goes through the
+    pressure-aware :class:`AdmissionQueue` (retries with exponential
+    backoff while ``ChurnState.pressure`` is up), a departure is a crash
+    fault (the lane's near blocks are reclaimed within the same window),
+    and per-tenant QoS counters (admission latency, evictions, hit rate)
+    accumulate from the churn series. The fleet's geometry never changes:
+    lanes flip active and inactive. Runs on ``device`` (CUDA unless named),
+    through the kernels unless ``kernel_backend="torch"``."""
+
+    def __init__(
+        self,
+        spec,
+        queue: AdmissionQueue | None = None,
+        accesses_per_window: int = 512,
+        policy: str = "memtierd",
+        use_gpac: bool = True,
+        budget: int = 64,
+        slack: int = 1,
+        *,
+        kernel_backend: str | None = None,
+        partitionable: bool = True,
+        device=None,
+    ):
+        dev = runtime.resolve_device(device)
+        if kernel_backend is not None:
+            kernels_registry.resolve_backend(kernel_backend)
+            spec = dataclasses.replace(spec, kernel_backend=kernel_backend)
+        self.spec = spec
+        self.queue = queue if queue is not None else AdmissionQueue()
+        self.knobs = dict(
+            policy=policy, use_gpac=use_gpac, budget=budget, slack=slack)
+        n_g = spec.n_guests
+        self.cs = ce.init_churn(spec, active=np.zeros((n_g,), bool), device=dev)
+        self.lane_tenant = np.full((n_g,), -1, np.int64)  # lane -> tenant
+        self._departing: set[int] = set()  # tenants crashing next tick
+        self._near_cap_req: int | None = None
+        plan, tables = ce._bind_synth(
+            spec, ce.SynthTrace(1, accesses_per_window, partitionable=partitionable))
+        self._plan = plan
+        self._setup = tr.synth_setup(plan, tables, dev)
+        self._prev_near = np.zeros((n_g,), np.int64)
+
+    # ---- tenant lifecycle ----------------------------------------------
+    @property
+    def window(self) -> int:
+        return int(self.cs.window)
+
+    def submit(self, tenant: int, tier_floor: int = 0):
+        """Queue a tenant; ``tier_floor`` names the deepest tier index its
+        SLO tolerates (0 = near only; 1, the far tier, accepts any
+        placement)."""
+        self.queue.submit(
+            tenant, now=self.window, tier_floor=min(tier_floor, _N_TIERS - 1))
+
+    def depart(self, tenant: int):
+        """Tenant leaves: its lane crashes on the next :meth:`tick` (blocks
+        reclaimed inside that window)."""
+        if tenant not in self.lane_tenant:
+            raise ValueError(f"tenant {tenant} is not resident")
+        self._departing.add(tenant)
+
+    def set_near_cap(self, near_cap: int | None):
+        """Inject an effective near-capacity (None restores the physical
+        tier) from the next :meth:`tick` on."""
+        self._near_cap_req = (
+            self.spec.cfg.n_near if near_cap is None else int(near_cap))
+
+    def lane_of(self, tenant: int) -> int:
+        lanes = np.nonzero(self.lane_tenant == tenant)[0]
+        return int(lanes[0]) if lanes.size else -1
+
+    # ---- the window loop ------------------------------------------------
+    def tick(self) -> dict:
+        """One serving window: admit (pressure-aware) -> crash departures /
+        restart admissions -> one churn engine step -> QoS accounting."""
+        now, pressure = torch.stack([self.cs.window, self.cs.pressure]).tolist()
+        n_g = self.spec.n_guests
+        crash = np.zeros((n_g,), bool)
+        for tenant in self._departing:
+            lane = self.lane_of(tenant)
+            if lane >= 0:
+                crash[lane] = True
+                self.lane_tenant[lane] = -1
+        self._departing.clear()
+        free = [int(l) for l in np.nonzero(self.lane_tenant < 0)[0]]
+        restart = np.zeros((n_g,), bool)
+        for tenant in self.queue.admit(now, pressure, len(free)):
+            lane = free.pop(0)
+            restart[lane] = True
+            self.lane_tenant[lane] = tenant
+            self._prev_near[lane] = 0
+        row = dict(crash=crash, restart=restart)
+        if self._near_cap_req is not None:
+            row["near_cap"] = self._near_cap_req
+            self._near_cap_req = None
+        acc = tr.synth_accesses(self._plan, self._setup, now)
+        self.cs, out = ce.step(
+            self.spec, self.cs, acc, faults_row=row, **self.knobs)
+        # ---- per-tenant QoS accounting ---------------------------------
+        near = np.asarray(out["near_hits"])
+        far = np.asarray(out["far_hits"])
+        blocks = np.asarray(out["near_blocks"]).astype(np.int64)
+        for lane in range(n_g):
+            tenant = int(self.lane_tenant[lane])
+            if tenant < 0:
+                continue
+            q = self.queue.qos[tenant]
+            q.near_hits += int(near[lane])
+            q.far_hits += int(far[lane])
+            # SLO floor: near hits always satisfy the floor; a floor at the
+            # far tier accepts everything
+            q.floor_hits += int(near[lane])
+            if q.tier_floor >= _N_TIERS - 1:
+                q.floor_hits += int(far[lane])
+            if not restart[lane]:  # eviction = resident near blocks lost
+                q.evictions += int(max(self._prev_near[lane] - blocks[lane], 0))
+        self._prev_near = blocks
+        return out
+
+    def stats(self) -> dict:
+        """Service-level snapshot: pressure/backoff state plus every
+        tenant's QoS counters."""
+        window, pressure, engaged, near_cap = torch.stack([
+            self.cs.window, self.cs.pressure, self.cs.engaged.to(torch.int32),
+            self.cs.near_cap]).tolist()
+        return dict(
+            window=window,
+            pressure=pressure,
+            engaged=bool(engaged),
+            near_cap=near_cap,
+            resident=int((self.lane_tenant >= 0).sum()),
+            waiting=self.queue.n_waiting,
+            tenants={
+                t: dict(
+                    admission_latency=q.admission_latency,
+                    attempts=q.attempts,
+                    evictions=q.evictions,
+                    hit_rate=q.hit_rate,
+                    tier_floor=q.tier_floor,
+                    floor_hit_rate=q.floor_hit_rate,
+                )
+                for t, q in self.queue.qos.items()
+            },
+        )

@@ -4,9 +4,9 @@
 Admission is page-budget-aware: a request is admitted only if its prompt plus
 ``reserve_tokens`` of generation headroom fit a sequence slot. GPAC/tier
 maintenance runs on a fixed decode-step cadence (the paper's telemetry
-window). The pressure-aware admission of the reference (``BackoffConfig``,
-``TenantQoS``, ``AdmissionQueue``) serves only ``TieringService``, which
-waits for on-device trace synthesis (ROADMAP queue 1, items 10 and 14).
+window). The pressure-aware admission (``BackoffConfig``, ``TenantQoS``,
+``AdmissionQueue``) is the churn engine's serving front, behind
+``serve.engine.TieringService``.
 """
 from __future__ import annotations
 
@@ -76,3 +76,117 @@ class Scheduler:
     @property
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)
+
+
+# --------------------------------------------------------------------------
+# pressure-aware admission (the churn engine's serving front, DESIGN.md §13)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class BackoffConfig:
+    """Exponential-backoff knobs for admission under near-memory pressure:
+    the n-th rejected attempt retries after ``min(base * 2**n, cap)``
+    windows."""
+
+    base: int = 1
+    cap: int = 16
+
+    def delay(self, attempts: int) -> int:
+        return min(self.base * (2 ** min(attempts, 30)), self.cap)
+
+
+@dataclasses.dataclass
+class TenantQoS:
+    """Per-tenant quality-of-service counters (the churn benchmark's
+    per-tenant figure): admission latency in windows, blocks evicted from
+    the near tier while resident, and the tenant's cumulative hit split.
+
+    ``tier_floor`` is the deepest tier index this tenant's SLO tolerates
+    (0 = near-tier only, ``n_tiers - 1`` = any placement is fine);
+    ``floor_hits`` accumulates the accesses that landed at or above the
+    floor, so ``floor_hit_rate`` is the fraction of traffic inside SLO.
+    """
+
+    tenant: int
+    submitted_at: int = -1
+    admitted_at: int = -1
+    attempts: int = 0  # admissions denied under pressure so far
+    retry_at: int = 0  # next window this tenant may be considered
+    evictions: int = 0  # near blocks lost while resident
+    near_hits: int = 0
+    far_hits: int = 0
+    tier_floor: int = 0  # deepest acceptable tier index (SLO)
+    floor_hits: int = 0  # accesses that landed at or above the floor
+
+    @property
+    def admission_latency(self) -> int:
+        """Windows from submit to admit (-1 while still waiting)."""
+        if self.admitted_at < 0:
+            return -1
+        return self.admitted_at - self.submitted_at
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.near_hits + self.far_hits
+        return self.near_hits / total if total else 0.0
+
+    @property
+    def floor_hit_rate(self) -> float:
+        """Fraction of this tenant's accesses served inside its SLO floor."""
+        total = self.near_hits + self.far_hits
+        return self.floor_hits / total if total else 0.0
+
+
+class AdmissionQueue:
+    """FIFO admission that retries with exponential backoff under pressure
+    instead of failing.
+
+    Each window the service calls :meth:`admit` with the pressure
+    controller's backoff signal (``ChurnState.pressure``) and the number of
+    free guest lanes. Under pressure every *due* waiting tenant is pushed
+    out by :class:`BackoffConfig`'s exponential schedule (its ``attempts``
+    counter grows); with pressure clear, due tenants admit FIFO into the
+    free lanes. Tenants backed off earlier stay waiting until their
+    ``retry_at`` window even if pressure has cleared -- that is the backoff
+    doing its job: post-shrink stampedes are spread out instead of
+    re-spiking the near tier.
+    """
+
+    def __init__(self, backoff: BackoffConfig = BackoffConfig()):
+        self.backoff = backoff
+        self.waiting: deque = deque()  # tenant ids, FIFO
+        self.qos: dict[int, TenantQoS] = {}
+
+    def submit(self, tenant: int, now: int, tier_floor: int = 0) -> TenantQoS:
+        if tenant in self.qos:
+            raise ValueError(f"tenant {tenant} already submitted")
+        if tier_floor < 0:
+            raise ValueError(
+                f"tenant {tenant}: tier_floor must be >= 0, got {tier_floor}")
+        q = TenantQoS(tenant=tenant, submitted_at=now, retry_at=now,
+                      tier_floor=tier_floor)
+        self.qos[tenant] = q
+        self.waiting.append(tenant)
+        return q
+
+    def admit(self, now: int, pressure: int, free_lanes: int) -> list[int]:
+        """Tenants to admit this window (at most ``free_lanes``)."""
+        admitted: list[int] = []
+        still_waiting: deque = deque()
+        for tenant in self.waiting:
+            q = self.qos[tenant]
+            due = now >= q.retry_at
+            if due and pressure > 0:
+                q.retry_at = now + self.backoff.delay(q.attempts)
+                q.attempts += 1
+                still_waiting.append(tenant)
+            elif due and len(admitted) < free_lanes:
+                q.admitted_at = now
+                admitted.append(tenant)
+            else:
+                still_waiting.append(tenant)
+        self.waiting = still_waiting
+        return admitted
+
+    @property
+    def n_waiting(self) -> int:
+        return len(self.waiting)

@@ -333,7 +333,7 @@ def test_pressure_tick_shrink_and_grow_back(fleet, j):
 def test_unported_paths_raise(fleet, j):
     cs = engine.init_churn(fleet.spec, device="cpu")
     tr = fleet.traces["histogram"]
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="expected a TraceSource"):  # the JAX package's
         engine.run_churn(fleet.spec, cs, j.engine.SynthTrace(4, 16), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         engine.run_churn(fleet.spec, cs, tr, mesh=object(), device="cpu")

@@ -197,8 +197,13 @@ def test_empty_and_unknown_inputs(bench):
         engine.run(bench.spec, st, bench.traces, collect=("nope",), device="cpu")
     with pytest.raises(ValueError, match="unknown kernel backend"):
         engine.run(bench.spec, st, bench.traces, kernel_backend="xla", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine.SynthTrace(4, 16)
+    st2, out = engine.run(bench.spec, st, engine.SynthTrace(0, 16), device="cpu")
+    assert out == {} and st2 is st
+    with pytest.raises(ValueError, match="unknown workload"):
+        engine.run(bench.spec, st, engine.SynthTrace(2, 16, workloads=("nope", "redis")),
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        engine.run_sharded(bench.spec, st, engine.SynthTrace(2, 16))
     with pytest.raises(NotImplementedError, match="item 12"):
         engine.HostSpec(tiers=("near", "far"))
 

@@ -78,3 +78,19 @@ def test_import_builds_nothing():
                          text=True, cwd=ROOT, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_synthesis_calls_no_transcendental_library_function():
+    """The threefry streams and the window functions compute erf_inv, log,
+    log1p and pow from exactly rounded operations: no torch (or tensor)
+    transcendental, whose results differ between devices and from XLA."""
+    banned = {"erfinv", "erf", "log", "log1p", "log2", "exp", "exp2", "expm1", "pow",
+              "float_power", "lgamma", "special"}
+    for name in ("prng.py", "traces.py"):
+        tree = ast.parse((ROOT / "src" / "repro_torch" / "data" / name).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr in banned:
+                host = isinstance(node.value, ast.Name) and node.value.id in ("np", "math")
+                assert host, (name, node.lineno, node.attr)
+            if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Pow):
+                assert isinstance(node.left, ast.Constant), (name, node.lineno)

@@ -31,6 +31,7 @@ from repro.serve import engine as jengine  # noqa: E402
 from repro.serve import scheduler as jsched  # noqa: E402
 from repro_torch import configs, interop  # noqa: E402
 from repro_torch.core import consolidator, filter as pfilter, gpac, types  # noqa: E402
+from repro_torch.core import engine as core_engine  # noqa: E402
 from repro_torch.kernels import registry as kregistry  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -279,8 +280,10 @@ def test_entry_points_refuse_cpu_fallback(models, monkeypatch):
         model.init(seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_cache(1, 16)
-    with pytest.raises(NotImplementedError, match="items 10 and 14"):
-        engine.TieringService()
+    fleet, _ = core_engine.build([core_engine.GuestSpec(64)], core_engine.HostSpec(hp_ratio=16, cl=8),
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.TieringService(fleet)
 
 
 def test_launch_serve_runs_on_the_cpu(capsys):
