@@ -106,12 +106,30 @@ first use), then, printing one JSON line per phase:
    into five lanes at tick 0, one with ``tier_floor`` 1; one departure at
    tick 4; the near tier cut to 0.7 x n_near at tick 5 and restored at tick
    9), through the kernels and plain: identical ``stats()`` after every
-   tick, and the sixth tenant admitted only after the departure.
+   tick, and the sixth tenant admitted only after the departure;
+15. pebs -- phase 4's Redis guest with ``backend="pebs"`` (a binomial
+   subsample of each window's counts, ``data.prng.binomial``): 16 memtierd
+   windows through the kernels and plain, identical, payload intact; the
+   binomial of one window's counts on the card must equal the CPU's bit for
+   bit, for the Redis window and for the churn fleet's window 0 (whose
+   masim guest takes the BTRS branch), with the loops' iterations, the
+   elements on each branch and the host syncs; ``hot_mask_pebs`` timed;
+16. ntier -- the Redis guest on three tiers, ``compressed_specs(0.15, 0.25,
+   3.0)`` (boundaries 0 / 960 / 5,760 / 8,000, the same 16.8 GB of pools),
+   collecting hits, near_blocks and tco: hybridtier for 16 windows and
+   compressed, memtierd, autonuma and tpp for 4, each through the kernels
+   and plain, identical; then a 2-tier TierSpec tuple that resolves to the
+   no-tiers n_near must equal the no-tiers run over 4 windows;
+17. ntier_churn -- phase 6's fleet on those three tiers under phase 6's
+   fault schedule (the shrink at window 4 drives the pressure cascade),
+   kernels and plain identical, per-tier block counts and the tco series
+   printed; then phase 14's script on that fleet, kernels against plain.
 
-The phases run in the order 1-5, 11, 12, 6, 7, 13, 14, 8-10. An engine
+The phases run in the order 1-5, 11, 12, 6, 7, 13-17, 8-10. An engine
 kernel row's ``launches`` counts the engine's main path (the memtierd run);
-``launches_by_path`` adds the churn, reference, engine_synth, churn_synth
-and service runs. Every
+``launches_by_path`` adds the churn, reference, engine_synth, churn_synth,
+service, pebs, ntier (the first policy's kernel run, hybridtier),
+ntier_churn and its service runs. Every
 kernel row carries ``floor_aware_bound_ms``: the launch floor (this run's
 time of hot_count on the serve path's 1,632 bytes, ``launch_floor_ms``) plus
 its bound. The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -137,8 +155,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import address_space as asp  # noqa: E402
-from repro_torch.core import engine, faults, filter as pfilter, telemetry  # noqa: E402
-from repro_torch.data import traces  # noqa: E402
+from repro_torch.core import engine, faults, filter as pfilter, telemetry, tiers  # noqa: E402
+from repro_torch.data import prng, traces  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.consolidate import consolidate_region, scatter_region  # noqa: E402
 from repro_torch.kernels.flash_attention import gqa_attention  # noqa: E402
@@ -1050,6 +1068,227 @@ def service_phase(spec, device) -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------------------
+# 15-17. PEBS telemetry and N-tier hierarchies
+# --------------------------------------------------------------------------
+PEBS_TIMED = 5  # timed calls of hot_mask_pebs alone
+# benchmarks/fig_tco_curve.py's first 3-tier point: DRAM / zram (x3) / NVMM
+NTIER_SPECS = dict(near_fraction=0.15, mid_fraction=0.25, compression=3.0)
+NTIER_COLLECT = ("hits", "near_blocks", "tco")
+NTIER_POLICIES = (("hybridtier", N_WINDOWS), ("compressed", 4), ("memtierd", 4),
+                  ("autonuma", 4), ("tpp", 4))
+TWO_TIER_WINDOWS = 4
+
+
+def kernel_and_plain(label: str, run) -> dict:
+    """``run(backend)`` once through the kernels and once plain, the launch
+    counts set to 0 just before each and read just after: the kernel run
+    must launch K1-K4 and the plain run nothing. Returns both results, their
+    seconds and the kernel run's counts."""
+    out = {}
+    for backend in ("auto", "torch"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        registry.reset_launch_counts()
+        result, t = cuda_seconds(lambda: run(backend))
+        counts = registry.launch_counts()
+        if backend == "torch" and any(counts.values()):
+            raise AssertionError(f"{label}: the plain run launched kernels: {counts}")
+        missing = [k for k in ENGINE_KERNELS if counts[k] == 0]
+        if backend == "auto" and missing:
+            raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+        out[backend] = (result, t, counts)
+    return out
+
+
+def window_counts(spec, trace_window: torch.Tensor) -> torch.Tensor:
+    """float32[n_logical]: one window's access counts per page."""
+    ids = spec.localize(trace_window).reshape(-1)
+    return torch.bincount(ids[ids >= 0].long(), minlength=spec.cfg.n_logical).to(torch.float32)
+
+
+def binomial_card_vs_cpu(counts: torch.Tensor, epoch: int) -> dict:
+    """hot_mask_pebs's draw of ``counts`` on the card and on the CPU: equal
+    bit for bit. Returns the card's stats (iterations, branches, syncs) and
+    its time."""
+    key = prng.fold_in(prng.PRNGKey(0, device=counts.device), epoch)
+    stats: dict = {}
+    card, t = cuda_seconds(lambda: prng.binomial(key, counts, 0.25, stats=stats))
+    cpu = prng.binomial(key.cpu(), counts.cpu(), 0.25)
+    if not same_bits(card.cpu(), cpu):
+        raise AssertionError(f"pebs: the card's binomial differs from the CPU's: "
+                             f"{int((card.cpu() != cpu).sum())} elements")
+    return dict(stats, card_ms=t * 1e3, elements=counts.numel(), card_equals_cpu=True)
+
+
+def pebs_phase(spec, trace: np.ndarray, churn_spec, churn_trace: np.ndarray,
+               device) -> tuple[dict, dict]:
+    """The engine phase's Redis guest with backend="pebs": 16 memtierd
+    windows through the kernels and plain, identical; one window's binomial
+    on the card against the CPU's (the Redis window, then the churn fleet's
+    window 0, whose masim guest takes the BTRS branch); hot_mask_pebs timed
+    alone."""
+    kw = dict(RUN, backend="pebs")
+    base = filled_state(spec, device)
+    runs = kernel_and_plain("pebs", lambda b: engine.run(
+        spec, clone_state(base), trace, policy="memtierd", kernel_backend=b,
+        device=device, **kw))
+    (ref, ref_series), t_k, launches = runs["auto"]
+    (st, series), t_p, _ = runs["torch"]
+    assert_same_states(ref, st)
+    assert_same_series(ref_series, series, "pebs")
+    del st, runs
+    check_payload(spec, ref)
+    stats = {k: int(v) for k, v in ref.stats.items()}
+    if stats["consolidated_pages"] == 0 or stats["promoted_blocks"] == 0:
+        raise AssertionError(f"pebs: memtierd moved nothing: {stats}")
+    del ref
+    trace0 = torch.from_numpy(trace[:, 0]).to(device)
+    draws = {"redis": binomial_card_vs_cpu(window_counts(spec, trace0), 0)}
+    fleet0 = torch.from_numpy(np.ascontiguousarray(churn_trace[:, 0])).to(device)
+    draws["churn_fleet"] = binomial_card_vs_cpu(window_counts(churn_spec, fleet0), 0)
+    if draws["churn_fleet"]["btrs_elements"] == 0:
+        raise AssertionError("pebs: no element of the fleet's window took BTRS")
+    st = asp.record_accesses(spec.cfg, clone_state(base), spec.localize(trace0).reshape(-1))
+    del base
+    mask_ms = statistics.median(
+        cuda_seconds(lambda: telemetry.hot_mask(spec.cfg, st, "pebs"))[1] * 1e3
+        for _ in range(PEBS_TIMED))
+    hot = int(telemetry.hot_mask(spec.cfg, st, "pebs").sum())
+    del st
+    n_w = trace.shape[1]
+    return dict(
+        phase="pebs", policy="memtierd", windows=n_w, k=trace.shape[2],
+        s_per_window=t_k / n_w, s_per_window_plain=t_p / n_w, launches=launches,
+        hot_mask_pebs_ms=mask_ms, hot_pages_window0=hot, binomial=draws, stats=stats,
+        identical=True, payload_intact=True), launches
+
+
+def ntier_phase(trace: np.ndarray, device) -> tuple[dict, dict]:
+    """The Redis guest on NTIER_SPECS' three tiers, collecting hits,
+    near_blocks and tco: hybridtier for 16 windows and the other four
+    policies for 4, each through the kernels and plain, identical; then a
+    2-tier TierSpec tuple that resolves to the no-tiers n_near, which must
+    equal the no-tiers run (states and series, tco included)."""
+    guest = [engine.GuestSpec(N_LOGICAL, workload="redis", seed=0)]
+    host = {k: v for k, v in HOST.items() if k != "near_fraction"}
+    spec, st = engine.build(guest, engine.HostSpec(**host, tiers=tiers.compressed_specs(
+        **NTIER_SPECS)), device=device)
+    del st
+    pool_gb = spec.cfg.n_gpa_hp * spec.cfg.hp_bytes / 1e9
+    base = filled_state(spec, device)
+    lines, main_launches = {}, None
+    for policy, n_w in NTIER_POLICIES:
+        runs = kernel_and_plain(f"ntier {policy}", lambda b: engine.run(
+            spec, clone_state(base), trace[:, :n_w], policy=policy, collect=NTIER_COLLECT,
+            kernel_backend=b, device=device, **RUN))
+        (ref, ref_series), t_k, launches = runs["auto"]
+        (st, series), t_p, _ = runs["torch"]
+        assert_same_states(ref, st)
+        assert_same_series(ref_series, series, f"ntier {policy}")
+        if (ref_series["tier_blocks"][:, 0] > spec.tiers.bounds(0)[1]).any():
+            raise AssertionError(f"ntier {policy}: tier 0 holds more blocks than its slots")
+        check_payload(spec, ref)
+        lines[policy] = dict(
+            windows=n_w, s_per_window=t_k / n_w, s_per_window_plain=t_p / n_w,
+            tco=ref_series["tco"].tolist(), amat_ns=ref_series["amat_ns"].tolist(),
+            tier_blocks_last=ref_series["tier_blocks"][-1].tolist(),
+            tier_hits_last=ref_series["tier_hits"][-1].tolist(),
+            promoted=int(ref.stats["promoted_blocks"]), demoted=int(ref.stats["demoted_blocks"]))
+        main_launches = main_launches or launches
+        del runs, ref, st
+    del base
+
+    # the 2-tier special case against the no-tiers engine
+    dram = tiers.TierSpec("dram", HOST["near_fraction"], 90.0)
+    nvmm = tiers.TierSpec("nvmm", 1.0, 350.0, cost_per_gb=0.4)
+    spec2, st = engine.build(guest, engine.HostSpec(**host, tiers=(dram, nvmm)), device=device)
+    spec0, _ = engine.build(guest, engine.HostSpec(**HOST), device=device)
+    del st
+    if spec2.cfg != spec0.cfg or spec2.tiers.boundaries != (0, spec0.cfg.n_near, spec0.cfg.n_slots):
+        raise AssertionError(f"ntier: the 2-tier spec resolves to {spec2.tiers.boundaries}")
+    out = {}
+    for name, sp in (("two_tier", spec2), ("no_tiers", spec0)):
+        out[name] = engine.run(sp, filled_state(sp, device), trace[:, :TWO_TIER_WINDOWS],
+                               policy="memtierd", collect=NTIER_COLLECT, device=device, **RUN)
+    assert_same_states(out["two_tier"][0], out["no_tiers"][0])
+    assert_same_series(out["no_tiers"][1], out["two_tier"][1], "ntier: 2-tier special case")
+    del out
+    return dict(
+        phase="ntier", specs=NTIER_SPECS, boundaries=list(spec.tiers.boundaries),
+        n_near=spec.cfg.n_near, pool_gb=pool_gb, k=trace.shape[2], policies=lines,
+        launches=main_launches, two_tier_equals_no_tiers_windows=TWO_TIER_WINDOWS,
+        identical=True, payload_intact=True), main_launches
+
+
+def ntier_fleet(device):
+    """The churn fleet's five guests on NTIER_SPECS' three tiers."""
+    base = churn_fleet(device)
+    host = {k: v for k, v in CHURN_HOST.items() if k != "near_fraction"}
+    spec, _ = engine.build(list(base.guests), engine.HostSpec(
+        **host, tiers=tiers.compressed_specs(**NTIER_SPECS)), device=device)
+    return spec
+
+
+def ntier_churn_phase(trace: np.ndarray, device) -> tuple[dict, dict, dict]:
+    """The churn fleet on three tiers under the churn phase's fault schedule
+    (the shrink at window 4 drives the pressure cascade), collecting tco,
+    through the kernels and plain, identical; then the service phase's
+    script on that fleet (one tenant at tier_floor 1), kernels against
+    plain."""
+    spec = ntier_fleet(device)
+    sched = churn_schedule(spec)
+    kw = dict(CHURN_RUN, collect=NTIER_COLLECT)
+    runs = kernel_and_plain("ntier_churn", lambda b: engine.run_churn(
+        spec, engine.init_churn(spec, filled_state(spec, device), device=device), trace,
+        faults=sched, kernel_backend=b, device=device, **kw))
+    (ref, ref_series), t_k, launches = runs["auto"]
+    (cs, series), t_p, _ = runs["torch"]
+    assert_same_churn(ref, cs)
+    assert_same_series(ref_series, series, "ntier_churn")
+    del cs, runs
+    pressure, blocks = ref_series["pressure"], ref_series["tier_blocks"]
+    if pressure[4] < 1:
+        raise AssertionError(f"ntier_churn: the shrink did not engage: {pressure.tolist()}")
+    slots = np.diff(spec.tiers.boundaries)
+    if (blocks > slots).any():
+        raise AssertionError(f"ntier_churn: a tier holds more blocks than slots: {blocks.tolist()}")
+    g = {w: i for i, w in enumerate(CHURN_WORKLOADS)}
+    for w in INTACT + WIPED:
+        check_payload(spec, ref.state, range(*spec.logical_range(g[w])), wiped=w in WIPED)
+    n_w = trace.shape[1]
+    line = dict(
+        phase="ntier_churn", specs=NTIER_SPECS, boundaries=list(spec.tiers.boundaries),
+        windows=n_w, k=trace.shape[2], s_per_window=t_k / n_w, s_per_window_plain=t_p / n_w,
+        launches=launches, pressure=pressure.tolist(), tier_blocks=blocks.tolist(),
+        tco=ref_series["tco"].tolist(), near_cap=ref_series["near_cap"].tolist(),
+        identical=True, payload_checked=True)
+    del ref
+
+    svc_runs = {}
+    for backend in ("auto", "torch"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        registry.reset_launch_counts()
+        svc = serve_engine.TieringService(spec, accesses_per_window=CHURN_APW,
+                                          kernel_backend=backend, device=device)
+        hist, t = cuda_seconds(lambda: service_script(svc, spec.cfg.n_near))
+        svc_runs[backend] = (hist, t / SERVICE_TICKS, registry.launch_counts())
+        del svc
+    hist, svc_counts = svc_runs["auto"][0], svc_runs["auto"][2]
+    if svc_runs["torch"][0] != hist:
+        raise AssertionError("ntier service: stats() differ between the kernel and plain runs")
+    if [k for k in ENGINE_KERNELS if svc_counts[k] == 0] or any(svc_runs["torch"][2].values()):
+        raise AssertionError(f"ntier service: launches {svc_counts} / {svc_runs['torch'][2]}")
+    if hist[-1]["tenants"][12]["tier_floor"] != 1:
+        raise AssertionError("ntier service: the tier floor was not kept")
+    line["service"] = dict(
+        s_per_tick=svc_runs["auto"][1], s_per_tick_plain=svc_runs["torch"][1],
+        launches=svc_counts, pressure=[h["pressure"] for h in hist],
+        resident=[h["resident"] for h in hist], tenants=hist[-1]["tenants"], identical=True)
+    return line, launches, svc_counts
+
+
+# --------------------------------------------------------------------------
 # 8. serving: qwen2-0.5b at full width over the GPAC-tiered paged KV cache
 # --------------------------------------------------------------------------
 SERVE = dict(max_seqs=8, max_seq_len=2048, page_size=16, pages_per_block=4,
@@ -1491,7 +1730,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     main_launches = runs[-1]["launches"]  # the engine's main path: memtierd, 16 windows
     emit(profile_phase(spec, trace, device))
-    del trace, runs
+    del runs
     torch.cuda.empty_cache()
 
     churn_spec = churn_fleet(device)
@@ -1507,7 +1746,6 @@ def main() -> None:
     torch.cuda.empty_cache()
     reference_line, reference_launches = reference_phase(churn_spec, churn_trace, device)
     emit(reference_line)
-    del churn_trace
     gc.collect()
     torch.cuda.empty_cache()
     churn_synth_line, churn_synth_launches = churn_synth_phase(churn_spec, device)
@@ -1516,7 +1754,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     service_line, service_launches = service_phase(churn_spec, device)
     emit(service_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pebs_line, pebs_launches = pebs_phase(spec, trace, churn_spec, churn_trace, device)
+    emit(pebs_line)
     del churn_spec
+    ntier_line, ntier_launches = ntier_phase(trace, device)
+    emit(ntier_line)
+    del trace
+    ntier_churn_line, ntier_churn_launches, ntier_service_launches = ntier_churn_phase(
+        churn_trace, device)
+    emit(ntier_churn_line)
+    del churn_trace
     gc.collect()
     torch.cuda.empty_cache()
     for row in kernel_rows:
@@ -1524,7 +1773,9 @@ def main() -> None:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in (
             ("engine", main_launches), ("churn", churn_launches),
             ("reference", reference_launches), ("engine_synth", engine_synth_launches),
-            ("churn_synth", churn_synth_launches), ("service", service_launches))}
+            ("churn_synth", churn_synth_launches), ("service", service_launches),
+            ("pebs", pebs_launches), ("ntier", ntier_launches),
+            ("ntier_churn", ntier_churn_launches), ("ntier_service", ntier_service_launches))}
 
     model, params = serve_model(device)
     serve_line, serve_eng, serve_launches = serve_phase(model, params, device)

@@ -1,5 +1,5 @@
 """GPAC core, ported: address space, telemetry, filter, consolidator,
-host tiering, metrics and the engine loop."""
+host tiering and its N-tier hierarchies, metrics and the engine loop."""
 from repro_torch.core.types import (  # noqa: F401
     FREE,
     GpacConfig,
@@ -17,9 +17,14 @@ from repro_torch.core import (  # noqa: F401
     metrics,
     telemetry,
     tiering,
+    tiers,
 )
 from repro_torch.core.engine import (  # noqa: F401
     EngineSpec,
     GuestSpec,
     HostSpec,
+)
+from repro_torch.core.tiers import (  # noqa: F401
+    TierSpec,
+    TierVector,
 )

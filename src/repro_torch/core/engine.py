@@ -27,9 +27,14 @@ schedule (``core.faults``) and the pressure controller
 :func:`run`. :func:`run_reference` keeps the sequential per-guest window as
 the equivalence oracle.
 
+A :class:`HostSpec` with ``tiers`` (``core.tiers.TierSpec``s) builds an
+N-tier host: the policies run as flows between adjacent tiers, the churn
+engine's pressure controller as a per-tier cascade, and the ``tco``
+collector prices each window's placement.
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-items: the sharded runs (:func:`run_sharded`, and ``mesh=`` for the churn
-engine), n-tier hosts and the ``tco`` collector.
+item: the sharded runs (:func:`run_sharded`, and ``mesh=`` for the churn
+engine).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch
 from repro_torch.core import address_space as asp
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import gpac, metrics, telemetry, tiering
+from repro_torch.core import tiers as tiers_mod
 from repro_torch.core.types import GpacConfig, TieredState, allocated_hp_mask, init_state
 from repro_torch.data import traces as tr
 from repro_torch.kernels import registry as kernels_registry
@@ -79,7 +85,10 @@ class GuestSpec:
 @dataclasses.dataclass(frozen=True)
 class HostSpec:
     """Shared host geometry + default policy knobs for the combined config.
-    ``tiers`` (n-tier hierarchies) is not ported yet and must stay None."""
+    ``near_fraction`` sizes the near tier as a fraction of the guests'
+    needed huge pages, ``n_near`` overrides it; ``tiers`` (a tuple of
+    ``core.tiers.TierSpec``, exclusive with ``n_near``) replaces both with
+    an N-tier hierarchy whose tier 0 is the near pool."""
 
     hp_ratio: int = 512
     near_fraction: float = 0.5
@@ -94,8 +103,6 @@ class HostSpec:
     tiers: tuple | None = None
 
     def __post_init__(self):
-        if self.tiers is not None:
-            raise _not_ported("HostSpec.tiers (n-tier hierarchies)", 12)
         if self.hp_ratio < 1:
             raise ValueError(
                 f"HostSpec: hp_ratio must be >= 1, got {self.hp_ratio}")
@@ -114,6 +121,22 @@ class HostSpec:
             raise ValueError(
                 f"HostSpec: Consolidation Limit must be in [1, hp_ratio="
                 f"{self.hp_ratio}], got cl={self.cl}")
+        if self.tiers is not None:
+            if self.n_near:
+                raise ValueError(
+                    f"HostSpec: tiers and n_near are mutually exclusive "
+                    f"(tier 0's capacity sizes the near pool), got n_near="
+                    f"{self.n_near} with {len(self.tiers)} tiers")
+            object.__setattr__(self, "tiers", tuple(self.tiers))
+            if len(self.tiers) < 2:
+                raise ValueError(
+                    f"HostSpec: tiers needs >= 2 entries, got "
+                    f"{len(self.tiers)}")
+            for t in self.tiers:
+                if not isinstance(t, tiers_mod.TierSpec):
+                    raise ValueError(
+                        f"HostSpec: tiers entries must be TierSpec, got "
+                        f"{type(t).__name__}: {t!r}")
 
 
 class SegmentTables(NamedTuple):
@@ -132,20 +155,28 @@ class EngineSpec:
     Guest ``g`` owns logical pages ``[logical_offsets[g],
     logical_offsets[g+1])`` and GPA huge pages ``[hp_offsets[g],
     hp_offsets[g+1])``; segments are disjoint and tile their spaces.
-    ``kernel_backend`` is the registry knob (``"auto"`` | ``"torch"``);
-    ``arbitration_stride`` runs the host tick only every that many windows.
+    ``tiers`` is the resolved ``core.tiers.TierVector`` of an N-tier host
+    (None: the near/far split); ``kernel_backend`` is the registry knob
+    (``"auto"`` | ``"torch"``); ``arbitration_stride`` runs the host tick
+    only every that many windows.
     """
 
     cfg: GpacConfig
     guests: tuple[GuestSpec, ...]
     logical_offsets: tuple[int, ...]  # len n_guests+1
     hp_offsets: tuple[int, ...]  # len n_guests+1
+    tiers: Any = None
     kernel_backend: str = "auto"
     arbitration_stride: int = 1
 
     @property
     def n_guests(self) -> int:
         return len(self.guests)
+
+    @property
+    def tier_vector(self):
+        """The resolved hierarchy, defaulting to the near/far split."""
+        return tiers_mod.as_vector(self.cfg, self.tiers)
 
     def logical_range(self, g: int) -> tuple[int, int]:
         return self.logical_offsets[g], self.logical_offsets[g + 1]
@@ -238,7 +269,12 @@ def build(
     hp_offsets = tuple(np.cumsum([0] + hp_sizes).tolist())
     n_hp = hp_offsets[-1]
     total_need = sum(g.hp_need(host.hp_ratio) for g in guests)
-    n_near = host.n_near or max(1, int(host.near_fraction * total_need))
+    tv = None
+    if host.tiers is not None:
+        tv = tiers_mod.resolve(host.tiers, n_slots=n_hp, total_need=total_need)
+        n_near = tv.boundaries[1]
+    else:
+        n_near = host.n_near or max(1, int(host.near_fraction * total_need))
     cfg = GpacConfig(
         n_logical=logical_offsets[-1],
         hp_ratio=host.hp_ratio,
@@ -252,7 +288,7 @@ def build(
         reconsolidate_cooldown=host.reconsolidate_cooldown,
         dtype=host.dtype,
     )
-    spec = EngineSpec(cfg, guests, logical_offsets, hp_offsets)
+    spec = EngineSpec(cfg, guests, logical_offsets, hp_offsets, tiers=tv)
     return spec, init_engine_state(spec, device=dev)
 
 
@@ -524,7 +560,15 @@ def _collect_snapshot(spec, state, window) -> dict:
 
 @register_collector("tco")
 def _collect_tco(spec, state, window) -> dict:
-    raise _not_ported("the 'tco' collector (n-tier pricing)", 12)
+    """The TCO objective per window (``core.tiers.tco_metrics``, its float32
+    sums rounded as the reference's jitted collector): $-weighted resident
+    GB of the post-tick placement, the per-tier AMAT of this window's
+    accesses and the per-tier block and hit vectors. Without
+    ``HostSpec.tiers`` it prices the near/far split as DRAM/NVMM."""
+    tv = spec.tier_vector
+    blocks = tiers_mod.tier_alloc_counts(spec.cfg, state, tv)
+    return tiers_mod.tco_metrics(spec.cfg, tv, blocks, window["tier_hits"],
+                                 jit_rounding=True)
 
 
 # --------------------------------------------------------------------------
@@ -552,13 +596,15 @@ def _window(
         near_hits=(valid & (slot < cfg.n_near)).sum(dim=1).to(torch.int32),
         far_hits=(valid & (slot >= cfg.n_near)).sum(dim=1).to(torch.int32),
     )
+    if "tco" in collect:
+        window["tier_hits"] = tiers_mod.tier_hit_counts(spec.tier_vector, slot, valid)
     state = asp.record_accesses(
         cfg, state, ids.reshape(-1), kernel_backend=spec.kernel_backend)
     if use_gpac:
         state = gpac.gpac_maintenance_ragged(spec, state, backend, max_batches)
     state = tiering.strided_tick(
         cfg, state, policy, stride=spec.arbitration_stride, budget=budget,
-        epoch=epoch)
+        epoch=epoch, tiers=spec.tiers)
     state = telemetry.end_window(cfg, state)
     return state, run_collectors(spec, state, window, collect)
 
@@ -860,6 +906,8 @@ def _churn_window(
         near_hits=(valid & (slot < cfg.n_near)).sum(dim=1).to(torch.int32),
         far_hits=(valid & (slot >= cfg.n_near)).sum(dim=1).to(torch.int32),
     )
+    if "tco" in collect:
+        window["tier_hits"] = tiers_mod.tier_hit_counts(spec.tier_vector, slot, valid)
     kb = spec.kernel_backend
     h = asp.access_histogram(cfg, ids, valid, kb)
     if frow["drop"]:
@@ -869,9 +917,10 @@ def _churn_window(
         state = gpac.gpac_maintenance_ragged(spec, state, backend, max_batches)
     state = tiering.strided_tick(
         cfg, state, policy, stride=spec.arbitration_stride, budget=budget,
-        epoch=epoch)
+        epoch=epoch, tiers=spec.tiers)
     state, engaged, press = tiering.pressure_tick(
-        cfg, state, near_cap, cs.engaged, cs.pressure, budget=budget, slack=slack)
+        cfg, state, near_cap, cs.engaged, cs.pressure, budget=budget, slack=slack,
+        tiers=spec.tiers)
     state = telemetry.end_window(cfg, state)
     out = run_collectors(spec, state, window, collect)
     clash = set(out) & set(_CHURN_SERIES)
@@ -1075,7 +1124,7 @@ def step_reference(
             state = gpac.gpac_maintenance(
                 cfg, state, backend, max_batches, spec.guest_cl(g),
                 allow=allow, hp_range=spec.hp_range(g), kernel_backend=kb)
-    state = tiering.tick(cfg, state, policy, budget=budget)
+    state = tiering.tick(cfg, state, policy, budget=budget, tiers=spec.tiers)
     near = allocated_hp_mask(cfg, state) & (state.block_table < cfg.n_near)
     near_blocks = [near[slice(*spec.hp_range(g))].sum() for g in range(spec.n_guests)]
     out = {k: torch.stack(v).to(torch.int32) for k, v in (

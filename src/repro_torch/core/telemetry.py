@@ -2,10 +2,9 @@
 ``repro.core.telemetry``).
 
 Every backend maps raw per-window access counts to a ``bool[n_logical]``
-hot mask; the host only ever sees huge-page counts. ``ipt`` and ``damon``
-are ported; ``pebs`` draws from ``jax.random.binomial`` (inversion and
-BTRS rejection loops), which ``data.prng`` does not reproduce yet (ROADMAP
-queue 1, item 10b).
+hot mask; the host only ever sees huge-page counts: ``ipt``, ``pebs``
+(counts subsampled by ``jax.random.binomial``'s streams, ``data.prng``) and
+``damon``.
 """
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.types import GpacConfig, TieredState
+from repro_torch.data import prng
 from repro_torch.kernels import registry as kernels
 
 _BACKENDS: dict[str, Callable] = {}
@@ -72,10 +72,19 @@ def hot_mask_ipt(cfg: GpacConfig, state: TieredState) -> torch.Tensor:
     return hits >= cfg.ipt_min_hits
 
 
-def hot_mask_pebs(cfg: GpacConfig, state: TieredState, **kw) -> torch.Tensor:
-    raise NotImplementedError(
-        "telemetry backend 'pebs' samples with jax.random.binomial and is not "
-        "ported yet (ROADMAP queue 1, item 10b: jax.random.binomial in torch)")
+def hot_mask_pebs(
+    cfg: GpacConfig, state: TieredState, key: torch.Tensor | None = None,
+    rate: float = 0.25,
+) -> torch.Tensor:
+    """Sampled-counter hotness: a binomial subsample of this window's counts
+    at ``rate``, thresholded at ``max(1, int(hot_threshold * rate))``. The
+    key defaults to ``fold_in(PRNGKey(0), epoch)``, so runs are
+    reproducible; the draws take JAX's current default threefry layout
+    (``jax_threefry_partitionable`` True)."""
+    if key is None:
+        key = prng.fold_in(prng.PRNGKey(0, device=state.device), state.epoch)
+    sampled = prng.binomial(key, state.guest_counts.to(torch.float32), rate).to(torch.int32)
+    return sampled >= max(1, int(cfg.hot_threshold * rate))
 
 
 def hot_mask_damon(

@@ -1,14 +1,17 @@
-"""Host-side memory tiering: block-granular policies (port of the two-tier
-part of ``repro.core.tiering``).
+"""Host-side memory tiering: block-granular policies (port of
+``repro.core.tiering``'s replicated part).
 
-The host sees only huge-page telemetry and moves whole blocks between the
-near and far pools. ``memtierd``, ``autonuma`` and ``tpp`` are ported, with
-the two-tier near-memory pressure controller (:func:`pressure_tick`); the
-n-tier flows (``core/tiers.py``) are not yet.
+The host sees only huge-page telemetry and moves whole blocks between
+tiers: ``memtierd``, ``autonuma`` and ``tpp``, with the near-memory
+pressure controller (:func:`pressure_tick`). Each runs as flows between
+adjacent tiers of a ``core.tiers.TierVector`` -- the near/far split is its
+2-tier case -- and the controller as a per-tier cascade (``core.tiers``,
+which also registers ``compressed`` and ``hybridtier``).
 
-In place: :func:`swap_blocks` writes ``block_table``, ``slot_owner`` and
-both pools of the state handed in (see ``core.types``). It gathers the
-moving blocks of both pools before it writes either, as the reference does.
+In place: :func:`swap_flow` (and :func:`swap_blocks`, its near/far form)
+writes ``block_table``, ``slot_owner`` and both pools of the state handed
+in (see ``core.types``). It gathers the moving blocks of both sides before
+it writes either, as the reference does.
 """
 from __future__ import annotations
 
@@ -40,6 +43,88 @@ def policies() -> tuple[str, ...]:
     return tuple(_POLICIES)
 
 
+# --------------------------------------------------------------------------
+# the migration primitive
+# --------------------------------------------------------------------------
+def _read_slots(cfg: GpacConfig, state: TieredState, slots: torch.Tensor,
+                bounds: tuple[int, int]) -> torch.Tensor:
+    """The payload rows of ``slots`` (all inside ``bounds``), whichever pool
+    holds them; a tier that straddles the near/far split picks per row."""
+    if bounds[1] <= cfg.n_near:
+        return state.near_pool[slots]
+    if bounds[0] >= cfg.n_near:
+        return state.far_pool[slots - cfg.n_near]
+    near = (slots < cfg.n_near)[:, None, None]
+    return torch.where(near, state.near_pool[slots.clamp(max=cfg.n_near - 1)],
+                       state.far_pool[(slots - cfg.n_near).clamp(min=0)])
+
+
+def _write_slots(cfg: GpacConfig, state: TieredState, slots: torch.Tensor,
+                 data: torch.Tensor, bounds: tuple[int, int]) -> None:
+    if bounds[1] <= cfg.n_near:
+        state.near_pool[slots] = data
+    elif bounds[0] >= cfg.n_near:
+        state.far_pool[slots - cfg.n_near] = data
+    else:
+        near = slots < cfg.n_near
+        state.near_pool[slots[near]] = data[near]
+        state.far_pool[slots[~near] - cfg.n_near] = data[~near]
+
+
+def _in_range(cfg: GpacConfig, slots: torch.Tensor, bounds: tuple[int, int]) -> torch.Tensor:
+    """Whether each slot lies in the tier range ``[lo, hi)``. Slots lie in
+    ``[0, n_slots)``, so a bound at either end of that space is not tested:
+    on the near/far split each side is one comparison."""
+    lo, hi = bounds
+    if lo == 0:
+        return slots < hi
+    if hi == cfg.n_slots:
+        return slots >= lo
+    return (slots >= lo) & (slots < hi)
+
+
+def swap_flow(
+    cfg: GpacConfig,
+    state: TieredState,
+    lo_hps: torch.Tensor,
+    hi_hps: torch.Tensor,
+    k,
+    hi_bounds: tuple[int, int],
+    lo_bounds: tuple[int, int],
+) -> TieredState:
+    """Promote ``lo_hps[i]`` (lower tier) and demote ``hi_hps[i]`` (upper
+    tier) for i < k; pairs with a -1 id, i >= k, or a slot outside its
+    claimed tier range are dropped (the reference gathers rows for them and
+    scatters those to the drop sentinel: the same values)."""
+    i = torch.arange(lo_hps.shape[0], device=lo_hps.device)
+    lo_c = lo_hps.clamp(min=0)
+    hi_c = hi_hps.clamp(min=0)
+    s_lo = state.block_table[lo_c]
+    s_hi = state.block_table[hi_c]
+    ok = ((i < k) & (lo_hps >= 0) & (hi_hps >= 0) & _in_range(cfg, s_lo, lo_bounds)
+          & _in_range(cfg, s_hi, hi_bounds))
+
+    sel = ok.nonzero(as_tuple=True)  # one device sync for the masks
+    s_lo_ok, s_hi_ok = s_lo[sel], s_hi[sel]
+    # gather both sides before writing either
+    data_lo = _read_slots(cfg, state, s_lo_ok, lo_bounds)
+    data_hi = _read_slots(cfg, state, s_hi_ok, hi_bounds)
+    _write_slots(cfg, state, s_hi_ok, data_lo, hi_bounds)
+    _write_slots(cfg, state, s_lo_ok, data_hi, lo_bounds)
+
+    state.block_table[lo_hps[sel]] = s_hi_ok
+    state.block_table[hi_hps[sel]] = s_lo_ok
+    state.slot_owner[s_hi_ok] = lo_c[sel]
+    state.slot_owner[s_lo_ok] = hi_c[sel]
+
+    alloc = allocated_hp_mask(cfg, state)
+    stats = dict(state.stats)
+    stats["promoted_blocks"] = stats["promoted_blocks"] + (ok & alloc[lo_c]).sum().to(torch.int32)
+    stats["demoted_blocks"] = stats["demoted_blocks"] + (ok & alloc[hi_c]).sum().to(torch.int32)
+    stats["tlb_shootdowns"] = stats["tlb_shootdowns"] + ok.any().to(torch.int32)
+    return dataclasses.replace(state, stats=stats)
+
+
 def swap_blocks(
     cfg: GpacConfig,
     state: TieredState,
@@ -48,36 +133,10 @@ def swap_blocks(
     k,
 ) -> TieredState:
     """Promote ``far_hps[i]`` and demote ``near_hps[i]`` for i < k; pairs
-    with a -1 id, i >= k or mismatched tiers are dropped."""
-    i = torch.arange(far_hps.shape[0], device=far_hps.device)
-    fa = far_hps.clamp(min=0)
-    ne = near_hps.clamp(min=0)
-    s_far = state.block_table[fa]
-    s_near = state.block_table[ne]
-    ok = ((i < k) & (far_hps >= 0) & (near_hps >= 0)
-          & (s_far >= cfg.n_near) & (s_near < cfg.n_near))
-
-    sel = ok.nonzero(as_tuple=True)  # one device sync for the masks
-    s_far_ok, s_near_ok = s_far[sel], s_near[sel]
-    # gather both sides before writing either
-    data_far = state.far_pool[s_far_ok - cfg.n_near]
-    data_near = state.near_pool[s_near_ok]
-    state.near_pool[s_near_ok] = data_far
-    state.far_pool[s_far_ok - cfg.n_near] = data_near
-
-    state.block_table[far_hps[sel]] = s_near_ok
-    state.block_table[near_hps[sel]] = s_far_ok
-    state.slot_owner[s_near_ok] = fa[sel]
-    state.slot_owner[s_far_ok] = ne[sel]
-
-    alloc = allocated_hp_mask(cfg, state)
-    promoted = (ok & alloc[fa]).sum().to(torch.int32)
-    demoted = (ok & alloc[ne]).sum().to(torch.int32)
-    stats = dict(state.stats)
-    stats["promoted_blocks"] = stats["promoted_blocks"] + promoted
-    stats["demoted_blocks"] = stats["demoted_blocks"] + demoted
-    stats["tlb_shootdowns"] = stats["tlb_shootdowns"] + ok.any().to(torch.int32)
-    return dataclasses.replace(state, stats=stats)
+    with a -1 id, i >= k or mismatched tiers are dropped (:func:`swap_flow`
+    between the near and the far pool)."""
+    return swap_flow(cfg, state, far_hps, near_hps, k, (0, cfg.n_near),
+                     (cfg.n_near, cfg.n_slots))
 
 
 def block_score_arrays(host_counts: torch.Tensor, host_hist: torch.Tensor) -> torch.Tensor:
@@ -110,72 +169,37 @@ def _paired_ids(mask_a, score_a, mask_b, score_b, budget):
     return ids_a, ids_b, k
 
 
-def memtierd_tick(cfg: GpacConfig, state: TieredState, budget: int = 64) -> TieredState:
+def _flow(cfg, state, tiers, pair_name, **kw):
+    """A builtin policy as adjacent-pair flows (``core.tiers.flow_tick``)
+    over ``tiers``, or the near/far split when it is None."""
+    from repro_torch.core import tiers as tiers_mod
+
+    return tiers_mod.flow_tick(cfg, state, tiers_mod.as_vector(cfg, tiers),
+                               tiers_mod._PAIR_FNS[pair_name], **kw)
+
+
+def memtierd_tick(cfg: GpacConfig, state: TieredState, budget: int = 64,
+                  tiers=None) -> TieredState:
     """Proactive ranking: promote the hottest far blocks over colder near
     ones (strictly improving pairs), then demote cold near blocks into free
-    far blocks."""
-    score = _block_score(cfg, state)
-    alloc = allocated_hp_mask(cfg, state)
-    in_near = state.block_table < cfg.n_near
-    victim_score = torch.where(alloc, score, NEG + 1)
-    far_ids, near_ids, k = _paired_ids(
-        alloc & ~in_near & (score > 0), score, in_near, victim_score, budget)
-    gain = ((far_ids >= 0) & (near_ids >= 0)
-            & (score[far_ids.clamp(min=0)] > victim_score[near_ids.clamp(min=0)]))
-    # pairs are sorted best-first, so the improving prefix is contiguous
-    k = torch.minimum(k, gain.to(torch.int32).cumprod(dim=0).sum())
-    state = swap_blocks(cfg, state, far_ids, near_ids, k)
-
-    alloc = allocated_hp_mask(cfg, state)
-    in_near = state.block_table < cfg.n_near
-    score = _block_score(cfg, state)
-    cold_near = alloc & in_near & (score == 0)
-    free_far = ~alloc & ~in_near
-    far_ids, near_ids, k = _paired_ids(
-        free_far, torch.zeros_like(score), cold_near, score, budget)
-    return swap_blocks(cfg, state, far_ids, near_ids, k)
+    far blocks; per adjacent tier pair given an N-tier ``tiers`` vector."""
+    return _flow(cfg, state, tiers, "memtierd", budget=budget)
 
 
 def autonuma_tick(
     cfg: GpacConfig, state: TieredState, budget: int = 16, pressure: float = 0.95,
+    tiers=None,
 ) -> TieredState:
     """Hint-fault promotion; demote only under pressure (LRU victims)."""
-    alloc = allocated_hp_mask(cfg, state)
-    in_near = state.block_table < cfg.n_near
-    faulting = alloc & ~in_near & (state.host_counts >= 2)
-    near_used = (alloc & in_near).sum()
-    pressured = near_used >= int(pressure * cfg.n_near)
-    lru = state.last_touch_epoch
-    victim_ok = in_near & (~alloc | pressured)
-    victim_score = torch.where(alloc, lru, NEG + 1)
-    far_ids, near_ids, k = _paired_ids(
-        faulting, state.host_counts, victim_ok, victim_score, budget)
-    return swap_blocks(cfg, state, far_ids, near_ids, k)
+    return _flow(cfg, state, tiers, "autonuma", budget=budget, pressure=pressure)
 
 
 def tpp_tick(
     cfg: GpacConfig, state: TieredState, budget: int = 16, watermark: float = 0.1,
+    tiers=None,
 ) -> TieredState:
     """Fault promotion + watermark demotion under allocation pressure."""
-    alloc = allocated_hp_mask(cfg, state)
-    in_near = state.block_table < cfg.n_near
-    free_near = (in_near & ~alloc).sum()
-    want_free = int(watermark * cfg.n_near)
-    demand = (alloc & ~in_near & (state.host_counts >= 2)).sum()
-    need = torch.maximum(demand.clamp(max=want_free), demand.clamp(max=budget))
-    n_demote = (need - free_near).clamp(0, budget)
-    lru = state.last_touch_epoch
-    far_free_ids, near_cold_ids, k_d = _paired_ids(
-        ~in_near & ~alloc, torch.zeros_like(lru), in_near & alloc, lru, budget)
-    state = swap_blocks(cfg, state, far_free_ids, near_cold_ids,
-                        torch.minimum(k_d, n_demote))
-    alloc = allocated_hp_mask(cfg, state)
-    in_near = state.block_table < cfg.n_near
-    faulting = alloc & ~in_near & (state.host_counts >= 2)
-    far_ids, near_ids, k_p = _paired_ids(
-        faulting, state.host_counts, in_near & ~alloc, torch.zeros_like(lru),
-        budget)
-    return swap_blocks(cfg, state, far_ids, near_ids, k_p)
+    return _flow(cfg, state, tiers, "tpp", budget=budget, watermark=watermark)
 
 
 register_policy("memtierd", memtierd_tick)
@@ -184,16 +208,15 @@ register_policy("tpp", tpp_tick)
 
 
 def tick(cfg: GpacConfig, state: TieredState, policy: str, tiers=None, **kw) -> TieredState:
-    """Dispatch to a registered host tiering policy by name."""
-    if tiers is not None:
-        raise NotImplementedError(
-            "n-tier hierarchies (core/tiers.py) are not ported yet "
-            "(ROADMAP queue 1, item 12)")
+    """Dispatch to a registered host tiering policy by name; ``tiers`` (a
+    ``core.tiers.TierVector``) is forwarded only when set."""
     try:
         fn = _POLICIES[policy]
     except KeyError:
         raise ValueError(
             f"unknown tiering policy {policy!r} (have {policies()})") from None
+    if tiers is not None:
+        kw["tiers"] = tiers
     return fn(cfg, state, **kw)
 
 
@@ -229,30 +252,13 @@ def pressure_tick(
     Usage never exceeds the physical ``n_near``, so with a host-side
     ``near_cap >= n_near`` the controller cannot engage and the reference's
     call is a value-exact no-op (a swap of k = 0 pairs); the port then
-    returns at once, with no device sync (a tensor ``near_cap`` always
-    takes the full path)."""
+    skips it, with no device sync (a tensor ``near_cap`` always takes the
+    full path). It is the per-tier cascade
+    (``core.tiers.pressure_cascade``) over ``tiers``, or over the near/far
+    split when it is None, keyed on tier 0."""
     del engaged  # previous-window breach: carried for observers, not logic
-    if tiers is not None:
-        raise NotImplementedError(
-            "the n-tier pressure cascade (core/tiers.py) is not ported yet "
-            "(ROADMAP queue 1, item 12)")
-    dev = state.device
-    if not isinstance(near_cap, torch.Tensor) and near_cap >= cfg.n_near:
-        return (state, torch.zeros((), dtype=torch.bool, device=dev),
-                torch.zeros((), dtype=torch.int32, device=dev))
-    alloc = allocated_hp_mask(cfg, state)
-    in_near = state.block_table < cfg.n_near
-    usage = (alloc & in_near).sum().to(torch.int32)
-    if isinstance(near_cap, torch.Tensor):
-        low = (near_cap - slack).clamp(min=0)
-    else:
-        low = max(int(near_cap) - slack, 0)
-    engaged = usage > near_cap
-    n_demote = torch.where(engaged, (usage - low).clamp(0, budget), 0)
-    score = _block_score(cfg, state)
-    far_ids, near_ids, k = _paired_ids(
-        ~alloc & ~in_near, torch.zeros_like(score), alloc & in_near, score,
-        budget)
-    state = swap_blocks(cfg, state, far_ids, near_ids, torch.minimum(k, n_demote))
-    pressure = torch.where(engaged, pressure + 1, 0).to(torch.int32)
-    return state, engaged, pressure
+    from repro_torch.core import tiers as tiers_mod
+
+    return tiers_mod.pressure_cascade(
+        cfg, state, tiers_mod.as_vector(cfg, tiers), near_cap, pressure,
+        budget=budget, slack=slack)

@@ -409,3 +409,246 @@ def permutation(key: torch.Tensor, n: int, partitionable: bool = True) -> torch.
         order = torch.sort(random_bits(sub, (n,), partitionable), dim=-1, stable=True).indices
         x = torch.gather(x, -1, order)
     return x.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# binomial (jax.random.binomial: inversion and BTRS rejection loops)
+# --------------------------------------------------------------------------
+def _bits_at(key: torch.Tensor, idx: torch.Tensor, n: int, partitionable: bool) -> torch.Tensor:
+    """The words ``random_bits(key, (n,))`` holds at flat positions ``idx``
+    (one key), without hashing the other positions: a position's word
+    depends only on its own threefry counter."""
+    if partitionable:
+        o0, o1 = threefry2x32(key, idx >> 32, idx & M32)
+        return o0 ^ o1
+    half = (n + 1) // 2
+    low = idx < half  # the first half takes word 0 of the pair (i, i + half)
+    x0 = torch.where(low, idx, idx - half)
+    x1 = torch.where(low, idx + half, idx)
+    x1 = torch.where(x1 < n, x1, 0)  # an odd size pads the last pair with 0
+    o0, o1 = threefry2x32(key, x0, x1)
+    return torch.where(low, o0, o1)
+
+
+def _uniform_at(key: torch.Tensor, idx: torch.Tensor, n: int, partitionable: bool) -> torch.Tensor:
+    """``uniform(key, (n,))[idx]`` on [0, 1), as float64 (exact)."""
+    f = ((_bits_at(key, idx, n, partitionable) >> 9) | 0x3F800000).to(torch.int32)
+    return f.view(torch.float32).to(torch.float64) - 1.0
+
+
+def _div(a, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a / b`` (float32 values carried in float64), the numerator
+    made a tensor: torch's ``scalar / tensor`` is a reciprocal and a
+    multiply, two roundings."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full_like(b, a)
+    return _f32(a / b)
+
+
+def _k(x: float) -> float:
+    """A Python constant as the float32 value XLA folds it to."""
+    return float(np.float32(x))
+
+
+def _fma32_x(a: torch.Tensor, b, c) -> torch.Tensor:
+    """:func:`_fma32` for the binomial, whose operands can be infinite: an
+    infinite or NaN sum passes through."""
+    s, e = _two_sum(a * b, c)
+    return _f32(torch.where(torch.isfinite(s), _round_odd(s, e), s))
+
+
+def _log_x(z: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log over its whole range, as :func:`_xla_log` with
+    XLA's edges (its CPU code runs with subnormals flushed to zero): +-0
+    and subnormals give -inf, +inf gives +inf, a negative or NaN argument
+    NaN. The binomial's ``u = 0`` draws and its bound's terms reach them."""
+    out = _xla_log(z)
+    out = torch.where((z < 0) | torch.isnan(z), math.nan, out)
+    out = torch.where(z == math.inf, math.inf, out)
+    return torch.where(z.abs() < _MIN_NORMAL, -math.inf, out)
+
+
+# _stirling_approx_tail's table and its weak-typed constants as float32
+_STIRLING_TAIL = [_k(v) for v in (
+    0.0810614667953272, 0.0413406959554092, 0.0276779256849983, 0.02079067210376509,
+    0.0166446911898211, 0.0138761288230707, 0.0118967099458917, 0.0104112652619720,
+    0.00925546218271273, 0.00833056343336287)]
+
+
+def _stirling_tail(k: torch.Tensor) -> torch.Tensor:
+    """jax's ``_stirling_approx_tail``: the table up to 9, else the series
+    (every step a division: no multiply-add to fuse)."""
+    use_tail = k <= 9
+    kc = torch.clamp(k, 0.0, 9.0)
+    kp1 = _f32(kc + 1.0)
+    kp1sq = _f32(kp1 * kp1)
+    approx = _div(_f32(_k(1.0 / 12) - _div(_f32(_k(1.0 / 360) - _div(_k(1.0 / 1260), kp1sq)),
+                                          kp1sq)), kp1)
+    tab = torch.tensor(_STIRLING_TAIL, dtype=torch.float64, device=k.device)
+    row = torch.nan_to_num(torch.floor(kc), nan=0.0).long()
+    return torch.where(use_tail, tab[row], approx)
+
+
+def _binomial_inversion(key, count, q, idx, n, partitionable, stats):
+    """jax's ``_binomial_inversion`` at flat positions ``idx`` of an
+    ``n``-element draw: geometric gaps ``ceil(log(u) / log1p(-q))`` summed
+    until they pass ``count``. An element's result depends only on its own
+    draws, so each iteration hashes only the elements still below their
+    count; the loop ends when none is (one device sync per iteration)."""
+    log1m = _xla_log1p(-q)
+    num_geom = torch.zeros_like(count)
+    geom_sum = torch.zeros_like(count)
+    iters = 0
+    while True:
+        live = (geom_sum <= count).nonzero(as_tuple=True)[0]
+        if live.numel() == 0:
+            break
+        keys = split(key, 2, partitionable)
+        sub, key = keys[0], keys[1]
+        u = _uniform_at(sub, idx[live], n, partitionable)
+        geom = torch.ceil(_f32(_log_x(u) / log1m[live]))
+        num_geom[live] += 1.0
+        geom_sum[live] = _f32(geom_sum[live] + geom)
+        iters += 1
+    if stats is not None:
+        stats["inversion_iters"] = iters
+        stats["host_syncs"] += iters + 1  # each iteration's nonzero, and the last
+    return num_geom - 1.0
+
+
+class _BtrsSetup:
+    """BTRS's per-element constants (float32 values in float64), with the
+    multiply-adds XLA's CPU code fuses: ``b``, the first two terms of
+    ``a`` and ``c`` are FMAs; ``q * 0.01`` is a product of its own (LLVM
+    hoists it out of the loop over elements)."""
+
+    def __init__(self, count: torch.Tensor, q: torch.Tensor):
+        self.count = count
+        stddev = torch.sqrt(_f32(_f32(count * q) * _f32(1.0 - q)))
+        self.b = b = _fma32_x(stddev, _k(2.53), _k(1.15))
+        self.a = a = _f32(_fma32_x(b, _k(0.0248), _k(-0.0873)) + _f32(q * _k(0.01)))
+        self.a2 = _f32(a * 2.0)
+        self.c = _fma32_x(count, q, 0.5)
+        self.v_r = _f32(_k(0.92) - _div(_k(4.2), b))
+        self.r = r = _div(q, _f32(1.0 - q))
+        self.alpha = _f32(_f32(_div(_k(5.1), b) + _k(2.83)) * stddev)
+        self.m = m = torch.floor(_f32(_f32(count + 1.0) * q))
+        self.cm1 = cm1 = _f32(_f32(count - m) + 1.0)
+        self.t1 = _f32(_f32(m + 0.5) * _log_x(_div(_f32(m + 1.0), _f32(r * cm1))))
+        self.count1 = _f32(count + 1.0)
+        self.s_tail = (_stirling_tail(m), _stirling_tail(_f32(count - m)))
+
+
+def _btrs_step(s: _BtrsSetup, u: torch.Tensor, v: torch.Tensor):
+    """One BTRS proposal per element: ``(k, accept)``."""
+    u = u - 0.5  # exact
+    us = 0.5 - u.abs()
+    accept1 = (us >= _k(0.07)) & (v <= s.v_r)
+    k = torch.floor(_fma32_x(_f32(_div(s.a2, us) + s.b), u, s.c))
+    reject = (k < 0) | (k > s.count)
+    v = _log_x(_div(_f32(v * s.alpha), _f32(_div(s.a, _f32(us * us)) + s.b)))
+    nk1 = _f32(_f32(s.count - k) + 1.0)
+    ub = _fma32_x(s.count1, _log_x(_div(s.cm1, nk1)), s.t1)
+    ub = _fma32_x(_f32(k + 0.5), _log_x(_div(_f32(s.r * nk1), _f32(k + 1.0))), ub)
+    ub = _f32(_f32(ub + s.s_tail[0]) + s.s_tail[1])
+    ub = _f32(_f32(ub - _stirling_tail(k)) - _stirling_tail(_f32(s.count - k)))
+    return k, accept1 | (~reject & (v <= ub))
+
+
+def _btrs(key, count, q, idx, dummy_idx, n, partitionable, stats):
+    """jax's ``_btrs`` at flat positions ``idx``. Unlike the inversion, an
+    element's result depends on how long the loop runs: every accepted
+    proposal overwrites the last, and the reference's loop runs until every
+    element of the draw has accepted once -- the elements that take the
+    inversion too, which it runs at count 1e4, q 0.5 (``dummy_idx``). So
+    the real elements propose in every iteration, and the placeholders
+    until each has accepted once (their results are never used)."""
+    real = _BtrsSetup(count, q)
+    one = torch.ones(1, dtype=torch.float64, device=count.device)
+    dummy = _BtrsSetup(one * 1e4, one * 0.5)
+    k_out = torch.full_like(count, -1.0)
+    accepted = torch.zeros_like(count, dtype=torch.bool)
+    pending = dummy_idx
+    iters = dummy_props = syncs = 0
+    while True:
+        syncs += 1
+        # one device sync per iteration: is any element still unaccepted?
+        if not bool((~accepted).any()) and pending.numel() == 0:
+            break
+        keys = split(key, 3, partitionable)
+        key, sub0, sub1 = keys[0], keys[1], keys[2]
+        k, accept = _btrs_step(real, _uniform_at(sub0, idx, n, partitionable),
+                               _uniform_at(sub1, idx, n, partitionable))
+        k_out = torch.where(accept, k, k_out)
+        accepted |= accept
+        if pending.numel():
+            syncs += 1  # the compaction
+            dummy_props += pending.numel()
+            _, acc = _btrs_step(dummy, _uniform_at(sub0, pending, n, partitionable),
+                                _uniform_at(sub1, pending, n, partitionable))
+            pending = pending[~acc]
+        iters += 1
+    if stats is not None:
+        stats["btrs_iters"] = iters
+        stats["placeholder_proposals"] = dummy_props
+        stats["host_syncs"] += syncs
+    return k_out
+
+
+def binomial(key: torch.Tensor, count, prob, shape=None, dtype=torch.float32,
+             partitionable: bool = True, stats: dict | None = None) -> torch.Tensor:
+    """``jax.random.binomial(key, count, prob, shape, dtype)`` for one key
+    (``int64[2]``), bit for bit: the inversion where ``count * q <= 10``
+    (``q = min(prob, 1 - prob)``), BTRS elsewhere, reflected for ``prob >=
+    0.5``; NaN for a NaN or negative count or an invalid ``prob``, inf for
+    an infinite count. Counts are float32 values (cast if given otherwise).
+
+    ``stats``, when a dict, receives the loops' iteration counts, the
+    elements on each branch, the placeholder proposals BTRS made and the
+    device-to-host syncs of the call (each loop iteration reads back whether
+    any element is still live)."""
+    dev = key.device
+    count = torch.as_tensor(count, device=dev).to(torch.float32).to(torch.float64)
+    prob = torch.as_tensor(prob, device=dev).to(torch.float32).to(torch.float64)
+    bshape = torch.broadcast_shapes(count.shape, prob.shape)
+    shape = bshape if shape is None else tuple(shape)
+    try:
+        fits = torch.broadcast_shapes(bshape, shape) == torch.Size(shape)
+    except RuntimeError:
+        fits = False
+    if not fits:
+        raise ValueError(
+            f"binomial: shape {shape} does not broadcast count {tuple(count.shape)} "
+            f"and prob {tuple(prob.shape)}")
+    count = count.expand(shape).reshape(-1)
+    prob = prob.expand(shape).reshape(-1)
+    n = count.numel()
+    p_lt_half = prob < 0.5
+    q = torch.where(p_lt_half, prob, _f32(1.0 - prob))
+    count_nan_or_neg = torch.isnan(count) | (count < 0)
+    count_inf = torch.isinf(count)
+    q_is_nan = torch.isnan(q)
+    q_l_0 = q < 0
+    q = torch.where(q_is_nan | q_l_0, _k(0.01), q)
+    use_inversion = count_nan_or_neg | (_f32(count * q) <= 10.0)
+    count = torch.floor(count)
+    if stats is not None:
+        stats.update(inversion_iters=0, btrs_iters=0, placeholder_proposals=0,
+                     host_syncs=2)  # the two nonzeros below
+    inv_idx = use_inversion.nonzero(as_tuple=True)[0]
+    btrs_idx = (~use_inversion).nonzero(as_tuple=True)[0]
+    samples = torch.zeros_like(count)
+    if inv_idx.numel():
+        samples[inv_idx] = _binomial_inversion(
+            key, count[inv_idx], q[inv_idx], inv_idx, n, partitionable, stats)
+    if btrs_idx.numel():
+        samples[btrs_idx] = _btrs(key, count[btrs_idx], q[btrs_idx], btrs_idx,
+                                  inv_idx, n, partitionable, stats)
+    invalid = q_l_0 | q_is_nan | count_nan_or_neg
+    samples = torch.where(invalid, math.nan, samples)
+    samples = torch.where(count_inf & ~invalid, math.inf, samples)
+    keep = p_lt_half | count_nan_or_neg | q_is_nan | count_inf
+    samples = torch.where(keep, samples, _f32(count - samples))
+    if stats is not None:
+        stats.update(inversion_elements=inv_idx.numel(), btrs_elements=btrs_idx.numel())
+    return samples.reshape(shape).to(dtype)

@@ -284,11 +284,6 @@ class Engine:
 # --------------------------------------------------------------------------
 # steady-state tiering service (the churn engine's serving front)
 # --------------------------------------------------------------------------
-# near and far: the port's EngineSpec has no n-tier part (ROADMAP queue 1,
-# item 12), so a tenant's tier floor is scored against two tiers
-_N_TIERS = 2
-
-
 class TieringService:
     """Tenants arriving and departing on the churn engine's guest lanes.
 
@@ -343,10 +338,13 @@ class TieringService:
 
     def submit(self, tenant: int, tier_floor: int = 0):
         """Queue a tenant; ``tier_floor`` names the deepest tier index its
-        SLO tolerates (0 = near only; 1, the far tier, accepts any
-        placement)."""
+        SLO tolerates (0 = near only; ``n_tiers - 1`` accepts any
+        placement), against the spec's tier vector: a floor at the last
+        tier counts every hit in-SLO, any other floor near hits only (the
+        per-tenant hits resolve only the near/far split)."""
+        n_tiers = self.spec.tier_vector.n_tiers
         self.queue.submit(
-            tenant, now=self.window, tier_floor=min(tier_floor, _N_TIERS - 1))
+            tenant, now=self.window, tier_floor=min(tier_floor, n_tiers - 1))
 
     def depart(self, tenant: int):
         """Tenant leaves: its lane crashes on the next :meth:`tick` (blocks
@@ -404,9 +402,9 @@ class TieringService:
             q.near_hits += int(near[lane])
             q.far_hits += int(far[lane])
             # SLO floor: near hits always satisfy the floor; a floor at the
-            # far tier accepts everything
+            # deepest tier accepts everything
             q.floor_hits += int(near[lane])
-            if q.tier_floor >= _N_TIERS - 1:
+            if q.tier_floor >= self.spec.tier_vector.n_tiers - 1:
                 q.floor_hits += int(far[lane])
             if not restart[lane]:  # eviction = resident near blocks lost
                 q.evictions += int(max(self._prev_near[lane] - blocks[lane], 0))

@@ -337,9 +337,21 @@ def test_unported_paths_raise(fleet, j):
         engine.run_churn(fleet.spec, cs, j.engine.SynthTrace(4, 16), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         engine.run_churn(fleet.spec, cs, tr, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tiering.pressure_tick(fleet.spec.cfg, cs.state, 3, cs.engaged, cs.pressure,
-                              tiers=("near", "far"))
+    # an N-tier vector makes the controller the reference's per-tier cascade
+    from repro.core import tiers as jtiers
+    from repro_torch.core import tiers
+
+    cfg = fleet.spec.cfg
+    jtv = jtiers.resolve(jtiers.compressed_specs(0.1, 0.1, 2.0), cfg.n_slots, cfg.n_gpa_hp)
+    tv = tiers.resolve(tiers.compressed_specs(0.1, 0.1, 2.0), cfg.n_slots, cfg.n_gpa_hp)
+    jout = j.tiering.pressure_tick(fleet.jspec.cfg, jax_state(j, fleet.state0), 3,
+                                   j.jnp.zeros((), bool), j.jnp.zeros((), j.jnp.int32),
+                                   tiers=jtv)
+    out = tiering.pressure_tick(cfg, interop.state_from_numpy(fleet.state0, device="cpu"), 3,
+                                cs.engaged, cs.pressure, tiers=tv)
+    same_tree(jax_state_to_numpy(jout[0]), interop.state_to_numpy(out[0]))
+    same(jout[1], out[1], "engaged")
+    same(jout[2], out[2], "pressure")
     with pytest.raises(TypeError, match="ChurnState"):
         engine.run_churn(fleet.spec, cs.state, tr, device="cpu")
     with pytest.raises(ValueError, match="fault tables cover"):

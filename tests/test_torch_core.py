@@ -194,8 +194,9 @@ def test_end_window(w):
 
 
 def test_hot_masks(w):
-    """The ipt and damon classifiers and the per-huge-page counts; pebs
-    raises until JAX's generator is ported."""
+    """The ipt, damon and pebs classifiers and the per-huge-page counts
+    (pebs in jax's default threefry layout, which the port's pebs draws
+    in)."""
     for backend in ("ipt", "damon"):
         jhot = jtel.hot_mask(w.jcfg, jax_state(w.s1), backend)
         hot = tel.hot_mask(w.cfg, port_state(w.s1), backend)
@@ -204,8 +205,13 @@ def test_hot_masks(w):
              tel.hot_subpages_per_hp(w.cfg, port_state(w.s1), hot), backend)
     same(jit(jtel.accessed_subpages_per_hp, 0)(w.jcfg, jax_state(w.s1)),
          tel.accessed_subpages_per_hp(w.cfg, port_state(w.s1)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tel.hot_mask(w.cfg, port_state(w.s1), "pebs")
+    layout = bool(jax.config.jax_threefry_partitionable)
+    jax.config.update("jax_threefry_partitionable", True)
+    try:
+        jhot = jtel.hot_mask(w.jcfg, jax_state(w.s1), "pebs")
+    finally:
+        jax.config.update("jax_threefry_partitionable", layout)
+    same(jhot, tel.hot_mask(w.cfg, port_state(w.s1), "pebs"), "pebs")
 
 
 # ---- filter ----------------------------------------------------------------

@@ -204,7 +204,7 @@ def test_empty_and_unknown_inputs(bench):
                    device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         engine.run_sharded(bench.spec, st, engine.SynthTrace(2, 16))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="tiers entries must be TierSpec"):  # the JAX package's
         engine.HostSpec(tiers=("near", "far"))
 
 
