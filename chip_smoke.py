@@ -155,7 +155,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import address_space as asp  # noqa: E402
-from repro_torch.core import engine, faults, filter as pfilter, telemetry, tiers  # noqa: E402
+from repro_torch.core import engine, faults, filter as pfilter, sharding, telemetry, tiers  # noqa: E402
 from repro_torch.data import prng, traces  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.consolidate import consolidate_region, scatter_region  # noqa: E402
@@ -1289,6 +1289,306 @@ def ntier_churn_phase(trace: np.ndarray, device) -> tuple[dict, dict, dict]:
 
 
 # --------------------------------------------------------------------------
+# 18-19. sharded runs over torch.distributed
+# --------------------------------------------------------------------------
+SHARDED_RUN = dict(backend="ipt", use_gpac=True, max_batches=4, budget=64,
+                   windows_per_step=4)
+SHARDED_POLICIES = (("memtierd", CHURN_WINDOWS), ("autonuma", 4), ("tpp", 4))
+HOST_CHUNK = 1 << 30  # bytes per copy between a state on the card and its pinned host copy
+RANKS = 2
+RANKS_RSS_SCALE = 0.02  # the 2-rank job's one cut: 1.26 GB of pools, two replicas on one card
+RANKS_WINDOWS = 4
+RANKS_DIR = ROOT / "build" / "sharded_ranks"
+
+
+class HostHeld:
+    """A state (or churn carry) held in pinned host memory while the card
+    runs the next one, and compared with a later state on the card a chunk
+    at a time (each chunk copied back into one device buffer). The pinned
+    memory is allocated once and reused."""
+
+    def __init__(self):
+        self.arena = torch.empty(0, dtype=torch.uint8)
+        self.stage = None
+
+    def hold(self, state) -> dict:
+        leaves = self._leaves(state)
+        need = sum(t.numel() * t.element_size() for _, t in leaves)
+        if self.arena.numel() < need:  # with room for a churn carry's extra leaves
+            self.arena = torch.empty(0, dtype=torch.uint8)
+            self.arena = torch.empty(need + (1 << 24), dtype=torch.uint8, pin_memory=True)
+        held, at = {}, 0
+        for path, t in leaves:
+            n = t.numel() * t.element_size()
+            dst = self.arena[at:at + n]
+            src = t.contiguous().reshape(-1).view(torch.uint8) if n else t.reshape(-1)
+            for i in range(0, n, HOST_CHUNK):
+                dst[i:i + HOST_CHUNK].copy_(src[i:i + HOST_CHUNK])
+            held[path] = (dst, t.dtype, tuple(t.shape))
+            at += n
+        torch.cuda.synchronize()
+        return held
+
+    def assert_same(self, state, held: dict, what: str) -> None:
+        leaves = self._leaves(state)
+        if [p for p, _ in leaves] != list(held):
+            raise AssertionError(f"{what}: another set of leaves")
+        if self.stage is None:
+            self.stage = torch.empty(HOST_CHUNK, dtype=torch.uint8, device=state_device(state))
+        for path, t in leaves:
+            dst, dtype, shape = held[path]
+            if t.dtype != dtype or tuple(t.shape) != shape:
+                raise AssertionError(f"{what}: {path} has another dtype or shape")
+            src = t.contiguous().reshape(-1).view(torch.uint8) if t.numel() else t.reshape(-1)
+            for i in range(0, dst.numel(), HOST_CHUNK):
+                n = min(HOST_CHUNK, dst.numel() - i)
+                self.stage[:n].copy_(dst[i:i + n])
+                if not torch.equal(src[i:i + n], self.stage[:n]):
+                    raise AssertionError(f"{what}: {path} differs from the unsharded run")
+
+    @staticmethod
+    def _leaves(state, path: str = "") -> list:
+        if dataclasses.is_dataclass(state):
+            state = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+        if isinstance(state, dict):
+            return [x for k, v in state.items() for x in HostHeld._leaves(v, f"{path}{k}.")]
+        return [(path[:-1], state)]
+
+
+def state_device(state) -> torch.device:
+    return state.state.device if hasattr(state, "active") else state.device
+
+
+def measured(fn) -> dict:
+    """``fn()`` with the launch counts, the peak memory and the collective
+    record set to 0 just before and read just after."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    sharding.reset_collective_bytes()
+    result, t = cuda_seconds(fn)
+    return dict(result=result, seconds=t, launches=registry.launch_counts(),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                collective_bytes=sharding.collective_bytes(),
+                collective_calls=sharding.collective_calls())
+
+
+def sharded_case(label: str, n_w: int, spec, reference, sharded: dict, device,
+                 host: HostHeld) -> dict:
+    """``reference(state)`` (the unsharded run, through the kernels) held on
+    the host, then every ``sharded[name](backend, state)`` through the
+    kernels and plain, each from a fresh filled state made before its clock
+    starts: each must equal the reference bit for bit, each kernel run must
+    launch K1-K4 and each plain run nothing. Returns the case's line and the
+    first kernel run's counts."""
+    t0 = time.perf_counter()
+    state = filled_state(spec, device)
+    ref = measured(lambda: reference(state))
+    del state
+    (held_state, ref_series) = ref.pop("result")
+    held = host.hold(held_state)
+    del held_state
+    line = dict(case=label, windows=n_w, s_per_window_run=ref["seconds"] / n_w,
+                peak_gb_run=ref["peak_gb"], runs={})
+    first = None
+    for name, fn in sharded.items():
+        for backend in ("auto", "torch"):
+            state = filled_state(spec, device)
+            out = measured(lambda: fn(backend, state))
+            del state
+            state, series = out.pop("result")
+            host.assert_same(state, held, f"{label} {name} {backend}")
+            assert_same_series(ref_series, series, f"{label} {name} {backend}")
+            del state
+            counts = out["launches"]
+            if backend == "torch" and any(counts.values()):
+                raise AssertionError(f"{label} {name}: the plain run launched {counts}")
+            missing = [k for k in ENGINE_KERNELS if counts[k] == 0]
+            if backend == "auto" and missing:
+                raise AssertionError(f"{label} {name}: kernels never launched: {missing}")
+            first = first or counts
+            line["runs"][f"{name}/{backend}"] = dict(
+                s_per_window=out["seconds"] / n_w, peak_gb=out["peak_gb"],
+                launches=counts if backend == "auto" else None,
+                collective_bytes=out["collective_bytes"],
+                collective_calls=out["collective_calls"])
+    del held
+    line["seconds"] = time.perf_counter() - t0
+    return line, first
+
+
+def sharded_phase(trace: np.ndarray, device) -> tuple[dict, dict, dict]:
+    """Phase 6's fleet on a forced one-rank NCCL mesh: ``run_sharded`` on the
+    replicated and the host-partitioned path (memtierd, autonuma, tpp), the
+    host-partitioned path at arbitration stride 2, ``run_churn(mesh=)``
+    under phase 6's schedule and ``compressed`` host-partitioned on three
+    tiers with ``tco``, each through the kernels and plain and equal to
+    ``run`` / ``run_churn`` bit for bit."""
+    t0 = time.perf_counter()
+    spec = churn_fleet(device)
+    mesh = sharding.guest_mesh(1, device=device)
+    host = HostHeld()
+    cases, sharded_launches, churn_launches = [], None, None
+
+    def run_ref(policy, n_w, s=spec, **kw):
+        return lambda st: engine.run(s, st, trace[:, :n_w], policy=policy,
+                                     kernel_backend="auto", device=device,
+                                     **SHARDED_RUN, **kw)
+
+    def run_sh(policy, n_w, host_sharded, s=spec, **kw):
+        return lambda b, st: engine.run_sharded(
+            s, st, trace[:, :n_w], mesh=mesh, host_sharded=host_sharded, policy=policy,
+            kernel_backend=b, device=device, **SHARDED_RUN, **kw)
+
+    for policy, n_w in SHARDED_POLICIES:
+        line, counts = sharded_case(policy, n_w, spec, run_ref(policy, n_w), {
+            "replicated": run_sh(policy, n_w, False),
+            "host_partitioned": run_sh(policy, n_w, True)}, device, host)
+        cases.append(line)
+        sharded_launches = sharded_launches or counts
+    line, _ = sharded_case("memtierd_stride2", CHURN_WINDOWS, spec,
+                           run_ref("memtierd", CHURN_WINDOWS, arbitration_stride=2),
+                           {"host_partitioned": run_sh("memtierd", CHURN_WINDOWS, True,
+                                                       arbitration_stride=2)}, device, host)
+    cases.append(line)
+
+    sched = churn_schedule(spec)
+
+    def churn(mesh_, st, b="auto"):
+        cs = engine.init_churn(spec, st, device=device)
+        return engine.run_churn(spec, cs, trace, faults=sched, mesh=mesh_, kernel_backend=b,
+                                device=device, **CHURN_RUN)
+
+    line, churn_launches = sharded_case(
+        "churn", trace.shape[1], spec, lambda st: churn(None, st),
+        {"mesh": lambda b, st: churn(mesh, st, b)}, device, host)
+    cases.append(line)
+
+    nspec = ntier_fleet(device)
+    n_w = 4
+    line, _ = sharded_case(
+        "compressed", n_w, nspec, run_ref("compressed", n_w, s=nspec, collect=NTIER_COLLECT),
+        {"host_partitioned": run_sh("compressed", n_w, True, s=nspec,
+                                    collect=NTIER_COLLECT)}, device, host)
+    cases.append(line)
+    del host
+    torch.distributed.destroy_process_group()
+    cfg = spec.cfg
+    part = {n: sharding.host_state_bytes_sharded(cfg, sharding.host_partition(spec, n))
+            for n in (1, 2, 4)}
+    return dict(phase="sharded", mesh=dict(ranks=mesh.size, backend=mesh.backend,
+                                           device=str(mesh.device)),
+                n_gpa_hp=cfg.n_gpa_hp, n_near=cfg.n_near,
+                host_state_bytes=sharding.host_state_bytes(cfg),
+                host_state_bytes_sharded=part, cases=cases, identical=True,
+                seconds=time.perf_counter() - t0), \
+        sharded_launches, churn_launches
+
+
+def state_digest(state) -> dict:
+    """SHA-256 of every leaf's bytes (a state on the card, hashed on the
+    host)."""
+    import hashlib
+
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        leaves = v.items() if isinstance(v, dict) else [("", v)]
+        for k, t in leaves:
+            out[f"{f.name}{'.' + k if k else ''}"] = hashlib.sha256(
+                t.cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+    return out
+
+
+def ranks_fleet(device):
+    spec = churn_fleet(device, RANKS_RSS_SCALE)
+    return spec, engine.guest_traces(spec, RANKS_WINDOWS, CHURN_APW)
+
+
+RANKS_RUNS = (("memtierd", True), ("memtierd", False), ("tpp", True), ("tpp", False))
+
+
+def sharded_rank_worker(out_dir: str) -> None:
+    """One rank of the ``sharded_ranks`` job (``--sharded-rank``): the
+    reduced fleet through ``run_sharded`` on the job's gloo mesh, every run
+    through the kernels; writes its digests, series and numbers."""
+    from repro_torch.launch import multihost
+
+    info = multihost.initialize()
+    mesh = multihost.global_guest_mesh(device="cuda")
+    device = mesh.device
+    spec, trace = ranks_fleet(device)
+    out = {}
+    for policy, host_sharded in RANKS_RUNS:
+        state = filled_state(spec, device)
+        m = measured(lambda: engine.run_sharded(
+            spec, state, trace, mesh=mesh, host_sharded=host_sharded, policy=policy,
+            device=device, **SHARDED_RUN))
+        st, series = m.pop("result")
+        out[f"{policy}/{'host_partitioned' if host_sharded else 'replicated'}"] = dict(
+            digest=state_digest(st), series={k: v.tolist() for k, v in series.items()},
+            s_per_window=m["seconds"] / RANKS_WINDOWS, peak_gb=m["peak_gb"],
+            launches=m["launches"], collective_bytes=m["collective_bytes"],
+            collective_calls=m["collective_calls"])
+        del state, st
+    torch.distributed.destroy_process_group()
+    (pathlib.Path(out_dir) / f"rank{info.process_id}.json").write_text(json.dumps(out))
+    print(f"sharded rank {info.process_id} of {info.num_processes} done", flush=True)
+
+
+def sharded_ranks_phase(device) -> dict:
+    """``multihost.launch`` starts RANKS ranks on this one card over gloo;
+    each runs the reduced fleet host-partitioned and replicated, memtierd
+    and tpp, and every rank's state and series must equal this process's
+    ``run`` bit for bit (SHA-256 of every leaf; series exactly)."""
+    from repro_torch.launch import multihost
+
+    t_phase = time.perf_counter()
+    spec, trace = ranks_fleet(device)
+    want = {}
+    for policy in ("memtierd", "tpp"):
+        state, series = engine.run(spec, filled_state(spec, device), trace, policy=policy,
+                                   device=device, **SHARDED_RUN)
+        want[policy] = (state_digest(state), {k: v.tolist() for k, v in series.items()})
+        del state
+    RANKS_DIR.mkdir(parents=True, exist_ok=True)
+    for old in RANKS_DIR.glob("rank*.json"):
+        old.unlink()
+    t0 = time.perf_counter()
+    results = multihost.launch_check(str(ROOT / "chip_smoke.py"), marker="done",
+                                     num_processes=RANKS, args=("--sharded-rank", RANKS_DIR),
+                                     backend="gloo", device="cuda", cwd=str(ROOT),
+                                     timeout=600)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((RANKS_DIR / f"rank{r}.json").read_text()) for r in range(RANKS)]
+    for r, res in enumerate(ranks):
+        for key, got in res.items():
+            digest, series = want[key.split("/")[0]]
+            if got["digest"] != digest:
+                bad = sorted(k for k in digest if got["digest"][k] != digest[k])
+                raise AssertionError(f"sharded_ranks: rank {r} {key} state differs: {bad}")
+            if got["series"] != series:
+                raise AssertionError(f"sharded_ranks: rank {r} {key} series differ")
+            missing = [k for k in ENGINE_KERNELS if got["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"sharded_ranks: rank {r} {key} never launched {missing}")
+    cfg = spec.cfg
+    full = sharding.host_state_bytes(cfg)
+    per_rank = sharding.host_state_bytes_sharded(cfg, sharding.host_partition(spec, RANKS))
+    return dict(
+        phase="sharded_ranks", ranks=RANKS, backend="gloo", rss_scale=RANKS_RSS_SCALE,
+        windows=RANKS_WINDOWS, n_gpa_hp=cfg.n_gpa_hp, n_near=cfg.n_near,
+        pool_gb=cfg.n_gpa_hp * cfg.hp_bytes / 1e9, host_state_bytes=full,
+        host_state_bytes_per_rank=per_rank, per_rank_share=per_rank / full,
+        launch_s=wall, outputs=[r.stdout.strip().splitlines()[-1] for r in results],
+        runs={key: [{k: res[key][k] for k in ("s_per_window", "peak_gb", "launches",
+                                              "collective_bytes", "collective_calls")}
+                    for res in ranks] for key in ranks[0]},
+        identical=True, seconds=time.perf_counter() - t_phase)
+
+
+# --------------------------------------------------------------------------
 # 8. serving: qwen2-0.5b at full width over the GPAC-tiered paged KV cache
 # --------------------------------------------------------------------------
 SERVE = dict(max_seqs=8, max_seq_len=2048, page_size=16, pages_per_block=4,
@@ -1765,7 +2065,14 @@ def main() -> None:
     ntier_churn_line, ntier_churn_launches, ntier_service_launches = ntier_churn_phase(
         churn_trace, device)
     emit(ntier_churn_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_line, sharded_launches, sharded_churn_launches = sharded_phase(churn_trace, device)
+    emit(sharded_line)
     del churn_trace
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(sharded_ranks_phase(device))
     gc.collect()
     torch.cuda.empty_cache()
     for row in kernel_rows:
@@ -1775,7 +2082,8 @@ def main() -> None:
             ("reference", reference_launches), ("engine_synth", engine_synth_launches),
             ("churn_synth", churn_synth_launches), ("service", service_launches),
             ("pebs", pebs_launches), ("ntier", ntier_launches),
-            ("ntier_churn", ntier_churn_launches), ("ntier_service", ntier_service_launches))}
+            ("ntier_churn", ntier_churn_launches), ("ntier_service", ntier_service_launches),
+            ("sharded", sharded_launches), ("sharded_churn", sharded_churn_launches))}
 
     model, params = serve_model(device)
     serve_line, serve_eng, serve_launches = serve_phase(model, params, device)
@@ -1811,4 +2119,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank_worker(sys.argv[2])
+    else:
+        main()

@@ -1,5 +1,6 @@
 """GPAC core, ported: address space, telemetry, filter, consolidator,
-host tiering and its N-tier hierarchies, metrics and the engine loop."""
+host tiering and its N-tier hierarchies, metrics, the engine loop and its
+guest-axis sharding."""
 from repro_torch.core.types import (  # noqa: F401
     FREE,
     GpacConfig,
@@ -15,6 +16,7 @@ from repro_torch.core import (  # noqa: F401
     filter,
     gpac,
     metrics,
+    sharding,
     telemetry,
     tiering,
     tiers,

@@ -8,6 +8,9 @@ the engine's segment tables. The payload copy gathers straight out of
 whichever pool holds each source page (the gather_rows kernel) -- never out
 of a concatenation of the pools.
 
+The ``_local`` forms run the same rounds on a host-partitioned rank, whose
+payload is stored per huge page (``core.sharding``).
+
 In place: the mapping tables, ``region_epoch`` and both pools are written in
 the state handed in (see ``core.types``). The payload is gathered before
 either pool is written, as in the reference.
@@ -211,3 +214,75 @@ def consolidate_batches_multi(
     (``batches`` int32[n_guests, max_batches, hp_ratio])."""
     hp_pad = _uniform_hp_pad(cfg, batches.shape[0], hp_per_guest, state.device)
     return consolidate_rounds(cfg, state, batches, hp_pad)
+
+
+# --------------------------------------------------------------------------
+# host-partitioned rounds (payload owned by its huge page, no slot pools)
+# --------------------------------------------------------------------------
+def _apply_consolidation_local(
+    cfg: GpacConfig,
+    gpt: torch.Tensor,
+    rmap: torch.Tensor,
+    data: torch.Tensor,  # dtype[h_loc, hp_ratio, base_elems] hp-owned payload
+    re_loc: torch.Tensor,  # int32[h_loc] local region_epoch rows
+    epoch: torch.Tensor,
+    stats: dict,
+    pages: torch.Tensor,  # int32[n, hp_ratio] logical ids, -1 padded
+    region: torch.Tensor,  # int32[n] fresh region per row, -1 = -ENOMEM
+    hp_lo: int,  # first huge page of this rank's block range
+    kernel_backend: str = "auto",
+):
+    """:func:`_apply_consolidation` on the host-partitioned layout, in place
+    on ``gpt``, ``rmap``, ``data`` and ``re_loc``. Huge page ``h`` lives at
+    ``data[h - hp_lo]``, the replicated state's ``pools[block_table[h]]``,
+    so gathering the source pages by huge page and writing the region's row
+    is the replicated copy bit for bit. Sources and regions lie in the
+    calling guest's own GPA segment, inside this rank's range."""
+    valid = (pages >= 0) & (pages < cfg.n_logical)
+    ok = region >= 0
+    n_sel = valid.sum(dim=1)
+
+    safe_pages = torch.where(valid, pages, 0)
+    old_gpa = gpt[safe_pages]  # [n, hp_ratio]
+    off = torch.arange(cfg.hp_ratio, dtype=torch.int32, device=pages.device)
+    new_gpa = region[:, None] * cfg.hp_ratio + off
+    do_move = valid & ok[:, None]
+
+    # the copy: a flat row gather (the gather_rows kernel), then the
+    # region's rows; gathered before anything is written
+    h_loc = data.shape[0]
+    src_row = torch.where(do_move, old_gpa // cfg.hp_ratio - hp_lo, 0).clamp(0, h_loc - 1)
+    flat_rows = data.view(h_loc * cfg.hp_ratio, cfg.base_elems)
+    payload = kernels.dispatch("gather_rows", kernel_backend, flat_rows,
+                               src_row * cfg.hp_ratio + old_gpa % cfg.hp_ratio)
+    moving = do_move.nonzero(as_tuple=True)
+    dst_row = (region[:, None] - hp_lo).expand_as(pages)
+    data[dst_row[moving], off.expand_as(pages)[moving]] = payload[moving]
+    re_loc[region[ok] - hp_lo] = epoch
+    gpt, rmap, stats = _mapping_and_stats(
+        cfg, gpt, rmap, stats, pages, safe_pages, old_gpa, new_gpa, do_move, ok, n_sel)
+    return gpt, rmap, data, re_loc, stats
+
+
+def consolidate_rounds_local(
+    cfg: GpacConfig,
+    gpt: torch.Tensor,
+    rmap: torch.Tensor,
+    data: torch.Tensor,
+    re_loc: torch.Tensor,
+    epoch: torch.Tensor,
+    stats: dict,
+    batches: torch.Tensor,  # int32[n_rows, max_batches, hp_ratio]
+    hp_pad_idx: torch.Tensor,  # int32[n_rows, max_hp] this rank's GPA rows
+    hp_lo: int,
+    kernel_backend: str = "auto",
+):
+    """:func:`consolidate_rounds` for the host-partitioned engine: round-major
+    Algorithm-1 invocations over this rank's own guest rows, the copy on the
+    hp-owned payload ``data`` instead of the slot pools."""
+    for b in range(batches.shape[1]):
+        region = _alloc_regions_ragged(cfg, rmap, hp_pad_idx)
+        gpt, rmap, data, re_loc, stats = _apply_consolidation_local(
+            cfg, gpt, rmap, data, re_loc, epoch, stats, batches[:, b].to(torch.int32),
+            region, hp_lo, kernel_backend)
+    return gpt, rmap, data, re_loc, stats

@@ -32,9 +32,13 @@ N-tier host: the policies run as flows between adjacent tiers, the churn
 engine's pressure controller as a per-tier cascade, and the ``tco``
 collector prices each window's placement.
 
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: the sharded runs (:func:`run_sharded`, and ``mesh=`` for the churn
-engine).
+:func:`run_sharded` shards the guest axis over the ranks of a
+``core.sharding.GuestMesh`` (one rank per device, ``torch.distributed``):
+each rank runs its own guests' phases and one collective per window merges
+them, or, host-partitioned, each rank also carries only its own block range
+of the host state. ``run_series(mesh=)``, ``run_churn(mesh=)`` and
+``step(mesh=)`` take the same mesh. Every sharded run is bit-identical to
+:func:`run` / :func:`run_churn`.
 """
 from __future__ import annotations
 
@@ -53,11 +57,6 @@ from repro_torch.core.types import GpacConfig, TieredState, allocated_hp_mask, i
 from repro_torch.data import traces as tr
 from repro_torch.kernels import registry as kernels_registry
 from repro_torch.kernels import runtime
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP queue 1, item {item})")
 
 
 # --------------------------------------------------------------------------
@@ -403,11 +402,12 @@ def _coerce_source(source) -> TraceSource:
     return as_trace_source(source)
 
 
-def _bind_synth(spec: EngineSpec, synth: SynthTrace):
+def _bind_synth(spec: EngineSpec, synth: SynthTrace, n_shards: int = 1):
     """Bind a :class:`SynthTrace` to a spec's guests: the static
     :class:`repro_torch.data.traces.SynthPlan` (distinct workload set and
     shapes) and the per-guest numpy tables (seed, global guest id, workload
-    index, size)."""
+    index, size), padded to a mesh of ``n_shards`` ranks with no-op rows
+    (``gid`` -1 emits -1 accesses)."""
     n_g = spec.n_guests
     workloads = synth.workloads or tuple(g.workload for g in spec.guests)
     seeds = synth.seeds if synth.seeds is not None else tuple(g.seed for g in spec.guests)
@@ -431,28 +431,43 @@ def _bind_synth(spec: EngineSpec, synth: SynthTrace):
         wid=np.asarray([wset.index(w) for w in workloads], np.int32),
         n_logical=np.asarray([g.n_logical for g in spec.guests], np.int32),
     )
+    if n_shards > 1:
+        from repro_torch.core import sharding
+
+        fills = dict(seeds=0, gids=-1, wid=-1, n_logical=1)
+        tables = {k: sharding.pad_guest_rows(v, n_shards, fill=fills[k])
+                  for k, v in tables.items()}
     return plan, tables
 
 
 def _window_feed(spec: EngineSpec, source: TraceSource, dev: torch.device,
-                 first_window: int) -> Callable:
+                 first_window: int, mesh=None) -> Callable:
     """``feed(s, e)`` yields the accesses of this call's windows ``s`` to
-    ``e - 1``, each ``int32[n_guests, k]`` on ``dev``. An ArrayTrace chunk
-    goes to the device in one copy; a SynthTrace window is made on the
-    device from its absolute index ``first_window + i``, so any chunking
-    gives the same streams. The synthesis setup (keys, scatter tables) is
-    deterministic, so it is built once per call, where the reference
-    rebuilds it per chunk."""
+    ``e - 1``, each ``int32[n_guests, k]`` on ``dev`` -- or, given a
+    ``mesh``, ``int32[G_loc, k]``: the rank's own rows of the mesh-padded
+    guests (padding rows -1). An ArrayTrace chunk goes to the device in one
+    copy; a SynthTrace window is made on the device from its absolute index
+    ``first_window + i`` (keys fold in the global guest id), so any chunking
+    or mesh gives the same streams. The synthesis setup (keys, scatter
+    tables) is deterministic, so it is built once per call, where the
+    reference rebuilds it per chunk."""
+    n_shards = 1 if mesh is None else mesh.size
+    g_loc = -(-spec.n_guests // n_shards)
+    rows = slice(None) if mesh is None else slice(mesh.rank * g_loc, (mesh.rank + 1) * g_loc)
     if isinstance(source, SynthTrace):
-        plan, tables = _bind_synth(spec, source)
-        setup = tr.synth_setup(plan, tables, dev)
+        plan, tables = _bind_synth(spec, source, n_shards)
+        setup = tr.synth_setup(plan, {k: v[rows] for k, v in tables.items()}, dev)
 
         def feed(s, e):
             for i in range(s, e):
                 yield tr.synth_accesses(plan, setup, first_window + i)
     else:
-        by_window = np.ascontiguousarray(
-            np.transpose(source.traces, (1, 0, 2)), dtype=np.int32)
+        traces = source.traces
+        if mesh is not None:
+            from repro_torch.core import sharding
+
+            traces = sharding.pad_guest_rows(traces, n_shards)[rows]
+        by_window = np.ascontiguousarray(np.transpose(traces, (1, 0, 2)), dtype=np.int32)
 
         def feed(s, e):
             yield from torch.from_numpy(by_window[s:e]).to(dev)
@@ -574,21 +589,18 @@ def _collect_tco(spec, state, window) -> dict:
 # --------------------------------------------------------------------------
 # the window loop
 # --------------------------------------------------------------------------
-def _window(
+def _window_phases(
     spec: EngineSpec,
     state: TieredState,
     accesses: torch.Tensor,  # int32[n_guests, k] guest-local ids, -1 padded
-    epoch: int,  # host-side copy of state.epoch
-    policy: str,
     backend: str,
     use_gpac: bool,
     max_batches: int,
-    budget: int,
     collect: tuple[str, ...],
 ) -> tuple[TieredState, dict]:
-    """One engine window: translate and record every guest's accesses, one
-    batched GPAC pass, the host tier tick, the window roll, then the
-    collectors."""
+    """The access and GPAC phases of one window: translate and record every
+    guest's accesses, one batched GPAC pass. Returns the state and the
+    window's hit vectors."""
     cfg = spec.cfg
     ids = spec.localize(accesses)
     slot, _, valid = asp.translate(cfg, state, ids)
@@ -602,10 +614,30 @@ def _window(
         cfg, state, ids.reshape(-1), kernel_backend=spec.kernel_backend)
     if use_gpac:
         state = gpac.gpac_maintenance_ragged(spec, state, backend, max_batches)
+    return state, window
+
+
+def _window(
+    spec: EngineSpec,
+    state: TieredState,
+    accesses: torch.Tensor,
+    epoch: int,  # host-side copy of state.epoch
+    policy: str,
+    backend: str,
+    use_gpac: bool,
+    max_batches: int,
+    budget: int,
+    collect: tuple[str, ...],
+    phases: Callable = _window_phases,
+) -> tuple[TieredState, dict]:
+    """One engine window: the access and GPAC ``phases`` (a rank's and the
+    merge on a mesh: ``sharding.window_phases``), the host tier tick, the
+    window roll, then the collectors."""
+    state, window = phases(spec, state, accesses, backend, use_gpac, max_batches, collect)
     state = tiering.strided_tick(
-        cfg, state, policy, stride=spec.arbitration_stride, budget=budget,
+        spec.cfg, state, policy, stride=spec.arbitration_stride, budget=budget,
         epoch=epoch, tiers=spec.tiers)
-    state = telemetry.end_window(cfg, state)
+    state = telemetry.end_window(spec.cfg, state)
     return state, run_collectors(spec, state, window, collect)
 
 
@@ -697,6 +729,16 @@ def step(
                    use_gpac, max_batches, budget, collect)
 
 
+def _stack_series(chunks: list[dict]) -> dict:
+    return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+
+
+def _to_host(outs: list[dict]) -> dict:
+    """A chunk's per-window outputs, stacked on the device and copied to
+    the host in one transfer per series."""
+    return {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+
+
 def run(
     spec: EngineSpec,
     state: TieredState,
@@ -748,13 +790,10 @@ def run(
             epoch += 1
             outs.append(out)
         if collect:
-            chunks.append({
-                k: torch.stack([o[k] for o in outs]).cpu().numpy()
-                for k in outs[0]})
+            chunks.append(_to_host(outs))
     if not collect:
         return state, {}
-    series = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-    return state, series
+    return state, _stack_series(chunks)
 
 
 def run_series(
@@ -762,16 +801,19 @@ def run_series(
     state: TieredState,
     source: TraceSource | np.ndarray,
     tier_pair: str = "dram_nvmm",
+    mesh=None,
     *,
     device=None,
     **kw,
 ) -> tuple[TieredState, dict]:
     """:func:`run` + the per-VM series the at-scale figures plot: near
-    blocks, per-window hit rate and modeled throughput (any trace
-    source)."""
+    blocks, per-window hit rate and modeled throughput (any trace source).
+    With a ``mesh`` the windows go through :func:`run_sharded`
+    (``host_sharded=`` threads through, and is dropped without a mesh)."""
     n_g = spec.n_guests
     source = _coerce_source(source)
     _validate(spec, source, ())
+    host_sharded = kw.pop("host_sharded", True)
     if source.n_windows == 0:
         _check_device(state, device)
         return state, dict(
@@ -779,8 +821,12 @@ def run_series(
             hit_rate=np.zeros((0, n_g)),
             throughput=np.zeros((0, n_g)),
         )
-    state, out = run(spec, state, source, collect=("hits", "near_blocks"),
-                     device=device, **kw)
+    if mesh is None:
+        driver = run
+    else:
+        driver = functools.partial(run_sharded, mesh=mesh, host_sharded=host_sharded)
+    state, out = driver(spec, state, source, collect=("hits", "near_blocks"),
+                        device=device, **kw)
     nh = out["near_hits"].astype(np.float64)
     fh = out["far_hits"].astype(np.float64)
     hit_rate, throughput = metrics.throughput_from_hits(nh, fh, tier_pair)
@@ -791,8 +837,127 @@ def run_series(
     )
 
 
-def run_sharded(*args, **kwargs):
-    raise _not_ported("run_sharded (device-sharded runs, ArrayTrace or SynthTrace)", 13)
+# collectors with a host-partitioned form (core.sharding computes them from
+# the per-group candidate exchange, never from the replicated host state)
+HOST_SHARDED_COLLECTORS = ("hits", "near_blocks", "snapshot", "tco")
+
+
+def _check_mesh(mesh, dev: torch.device) -> None:
+    if mesh.device.type != dev.type or (
+            dev.type == "cuda" and mesh.device.index != dev.index):
+        raise ValueError(f"the mesh's rank runs on {mesh.device}, the state lives on {dev}")
+
+
+def run_sharded(
+    spec: EngineSpec,
+    state: TieredState,
+    source: TraceSource | np.ndarray,
+    *,
+    mesh=None,
+    host_sharded: bool = True,
+    policy: str = "memtierd",
+    backend: str = "ipt",
+    use_gpac: bool = True,
+    max_batches: int = 4,
+    budget: int = 64,
+    windows_per_step: int = 0,
+    strict_wps: bool = False,
+    collect: tuple[str, ...] = ("hits", "near_blocks"),
+    kernel_backend: str | None = None,
+    arbitration_stride: int | None = None,
+    device=None,
+) -> tuple[TieredState, dict]:
+    """:func:`run`, sharded over the guest axis: every rank of ``mesh`` (a
+    ``core.sharding.GuestMesh``) calls it with the same arguments and the
+    replicated state, runs its own contiguous block of guests, and returns
+    the same state and series. ``mesh=None`` takes every rank of the job
+    (``sharding.guest_mesh()``) and falls back to :func:`run` when the job
+    has one rank. Guest counts that do not divide the mesh are padded with
+    no-op rows. Bit-identical to :func:`run` on any number of ranks.
+
+    ``host_sharded=False`` keeps the host state replicated: one collective
+    per window merges the ranks' access and GPAC phases, and the host tick
+    runs on every rank alike (any policy and collector). ``host_sharded=
+    True`` (the default) partitions the host state itself by contiguous
+    block ranges: each rank carries only its own range of the block table,
+    host telemetry and payload (``sharding.host_state_bytes_sharded``),
+    nominates tick candidates locally, and one exchange per arbitration
+    group decides the swaps; the full state is rebuilt once per chunk. It
+    needs a host-partitioned tick for ``policy``
+    (``tiering.sharded_ticks()``) and collectors in
+    :data:`HOST_SHARDED_COLLECTORS`, and with ``arbitration_stride`` > 1
+    groups that tile every chunk from an arbitration boundary.
+
+    A :class:`SynthTrace` makes each rank's own guests' accesses on its
+    device (keys fold in the global guest id); an :class:`ArrayTrace` is
+    padded and each rank takes its rows. The state must live on the mesh's
+    device."""
+    from repro_torch.core import sharding
+
+    source = _coerce_source(source)
+    spec = _with_overrides(spec, kernel_backend, arbitration_stride)
+    if mesh is None:
+        mesh = sharding.guest_mesh(device=state.device)
+    if mesh is None:
+        return run(spec, state, source, policy=policy, backend=backend,
+                   use_gpac=use_gpac, max_batches=max_batches, budget=budget,
+                   windows_per_step=windows_per_step, strict_wps=strict_wps,
+                   collect=collect, device=device)
+    dev = _check_device(state, device)
+    _check_mesh(mesh, dev)
+    collect = _validate(spec, source, collect)
+    n_w = source.n_windows
+    if n_w == 0:
+        return state, {}
+    epoch = int(state.epoch)  # the only device read of the run's control flow
+    stride = spec.arbitration_stride
+    if host_sharded:
+        unsupported = tuple(c for c in collect if c not in HOST_SHARDED_COLLECTORS)
+        if unsupported:
+            raise ValueError(
+                f"collectors {unsupported} have no host-sharded implementation "
+                f"(host-sharded collectors: {HOST_SHARDED_COLLECTORS}); pass "
+                f"host_sharded=False to run them on the replicated host state")
+        tiering.sharded_tick_fns(policy)  # fail fast on unsupported policies
+        if stride > 1:
+            # one exchange per stride group: groups must tile every chunk
+            # and start on an arbitration boundary
+            if n_w % stride:
+                raise ValueError(
+                    f"host_sharded arbitration_stride={stride} must divide the "
+                    f"run's n_windows={n_w}")
+            if epoch % stride:
+                raise ValueError(
+                    f"host_sharded arbitration_stride={stride} needs the state's "
+                    f"epoch ({epoch}) on an arbitration boundary (epoch % stride "
+                    f"== 0); pass host_sharded=False to resume mid-stride")
+    wps = _round_wps(n_w, windows_per_step, strict_wps)
+    if host_sharded and stride > 1 and wps % stride:
+        raise ValueError(
+            f"host_sharded arbitration_stride={stride} must divide the chunk "
+            f"size (windows_per_step resolved to {wps}); pick a multiple of "
+            f"the stride")
+    feed = _window_feed(spec, source, dev, 0, mesh)
+    knobs = dict(policy=policy, backend=backend, use_gpac=use_gpac,
+                 max_batches=max_batches, budget=budget, collect=collect)
+    phases = functools.partial(sharding.window_phases, mesh)
+    chunks = []
+    for s in range(0, n_w, wps):
+        e = min(s + wps, n_w)
+        if host_sharded:
+            state, outs = sharding.run_chunk_host_sharded(
+                spec, mesh, state, list(feed(s, e)), **knobs)
+        else:
+            outs = []
+            for acc in feed(s, e):
+                state, out = _window(spec, state, acc, epoch, **knobs, phases=phases)
+                epoch += 1
+                outs.append(out)
+        if collect:
+            chunks.append(_to_host(outs))
+    if not collect:
+        return state, {}
+    return state, _stack_series(chunks)
 
 
 # --------------------------------------------------------------------------
@@ -866,41 +1031,22 @@ def init_churn(
     return cs
 
 
-def _churn_window(
+def _churn_phases(
     spec: EngineSpec,
-    cs: ChurnState,
+    state: TieredState,
     accesses: torch.Tensor,  # int32[n_guests, k] guest-local ids, -1 padded
-    frow: dict,  # this window's fault row, host values: crash, restart, near_cap, drop
-    epoch: int,  # host-side copy of cs.state.epoch
-    policy: str,
+    active: torch.Tensor,  # bool[n_guests]
+    drop: bool,  # a telemetry dropout window
     backend: str,
     use_gpac: bool,
     max_batches: int,
-    budget: int,
-    slack: int,
     collect: tuple[str, ...],
-) -> tuple[ChurnState, dict]:
-    """One churn window: :func:`_window` with the fault row applied first,
-    inactive lanes' accesses masked to -1, the telemetry written through
-    the access histogram (zeroed in a dropout window) and the pressure
-    controller run after the policy tick.
-
-    The fault row lives on the host, so a window without a crash or restart
-    skips the fault pass (it would be value-exact identity) and writes
-    nothing to the pools, and a capacity at ``n_near`` costs the controller
-    no device sync. With no fault every step is value-exact identity, so
-    the run stays bit-identical to :func:`run` on either of its telemetry
-    branches."""
+) -> tuple[TieredState, dict]:
+    """:func:`_window_phases` with inactive lanes' accesses masked to -1 and
+    the telemetry written through the access histogram (zeroed in a
+    dropout window)."""
     cfg = spec.cfg
-    state, active = cs.state, cs.active
-    dev = state.device
-    if frow["crash"].any() or frow["restart"].any():
-        state, active = faults_mod.apply_guest_faults(
-            spec, state, active, torch.from_numpy(frow["crash"]).to(dev),
-            torch.from_numpy(frow["restart"]).to(dev))
-    near_cap = min(int(frow["near_cap"]), cfg.n_near)
-    acc = torch.where(active[:, None], accesses, -1)
-    ids = spec.localize(acc)
+    ids = spec.localize(torch.where(active[:, None], accesses, -1))
     slot, _, valid = asp.translate(cfg, state, ids)
     window = dict(
         near_hits=(valid & (slot < cfg.n_near)).sum(dim=1).to(torch.int32),
@@ -910,11 +1056,51 @@ def _churn_window(
         window["tier_hits"] = tiers_mod.tier_hit_counts(spec.tier_vector, slot, valid)
     kb = spec.kernel_backend
     h = asp.access_histogram(cfg, ids, valid, kb)
-    if frow["drop"]:
+    if drop:
         h = h * 0  # the reference's integer dropout gate
     state = asp.apply_access_histogram(cfg, state, h, kb)
     if use_gpac:
         state = gpac.gpac_maintenance_ragged(spec, state, backend, max_batches)
+    return state, window
+
+
+def _churn_window(
+    spec: EngineSpec,
+    cs: ChurnState,
+    accesses: torch.Tensor,
+    frow: dict,  # this window's fault row, host values: crash, restart, near_cap, drop
+    epoch: int,  # host-side copy of cs.state.epoch
+    policy: str,
+    backend: str,
+    use_gpac: bool,
+    max_batches: int,
+    budget: int,
+    slack: int,
+    collect: tuple[str, ...],
+    phases: Callable = _churn_phases,
+) -> tuple[ChurnState, dict]:
+    """One churn window: :func:`_window` with the fault row applied first,
+    the churn ``phases`` (:func:`_churn_phases`; on a mesh
+    ``sharding.churn_phases``) and the pressure controller run after the
+    policy tick.
+
+    The fault row lives on the host, so a window without a crash or restart
+    skips the fault pass (it would be value-exact identity) and writes
+    nothing to the pools, and a capacity at ``n_near`` costs the controller
+    no device sync. With no fault every step is value-exact identity, so
+    the run stays bit-identical to :func:`run` on either of its telemetry
+    branches. The fault row and the activity mask are replicated, so on a
+    mesh everything but the phases computes alike on every rank."""
+    cfg = spec.cfg
+    state, active = cs.state, cs.active
+    dev = state.device
+    if frow["crash"].any() or frow["restart"].any():
+        state, active = faults_mod.apply_guest_faults(
+            spec, state, active, torch.from_numpy(frow["crash"]).to(dev),
+            torch.from_numpy(frow["restart"]).to(dev))
+    near_cap = min(int(frow["near_cap"]), cfg.n_near)
+    state, window = phases(spec, state, accesses, active, frow["drop"], backend,
+                           use_gpac, max_batches, collect)
     state = tiering.strided_tick(
         cfg, state, policy, stride=spec.arbitration_stride, budget=budget,
         epoch=epoch, tiers=spec.tiers)
@@ -993,7 +1179,10 @@ def run_churn(
     chunking; with ``faults=None`` and all lanes active the run is
     bit-identical to :func:`run`. A :class:`SynthTrace` keys each window's
     accesses on the absolute window index carried in ``cs.window``, so
-    repeated calls continue the streams of one long run.
+    repeated calls continue the streams of one long run. A ``mesh``
+    (``core.sharding.GuestMesh``) shards the guest axis as
+    :func:`run_sharded` with ``host_sharded=False`` does: one collective per
+    window, bit-identical to the unsharded run.
 
     Reads the carry's epoch, window and capacity from the device once per
     call. Returns ``(cs, series)``; beyond the collectors the series always
@@ -1003,9 +1192,11 @@ def run_churn(
         raise TypeError(
             f"run_churn needs a ChurnState carry (init_churn), got "
             f"{type(cs).__name__}")
-    if mesh is not None:
-        raise _not_ported("run_churn over a device mesh (mesh=)", 13)
     dev = _check_device(cs.state, device)
+    if mesh is not None:
+        from repro_torch.core import sharding
+
+        _check_mesh(mesh, dev)
     source = _coerce_source(source)
     spec = _with_overrides(spec, kernel_backend, arbitration_stride)
     collect = _validate(spec, source, collect)
@@ -1015,7 +1206,13 @@ def run_churn(
     epoch, w0, carried_cap = torch.stack(
         [cs.state.epoch, cs.window, cs.near_cap]).tolist()
     ft = _resolve_fault_tables(spec, carried_cap, faults, n_w, w0)
-    feed = _window_feed(spec, source, dev, w0)
+    if mesh is None:
+        feed = _window_feed(spec, source, dev, w0)
+        window_fn = functools.partial(_churn_window, spec)
+    else:
+        feed = _window_feed(spec, source, dev, w0, mesh)
+        window_fn = functools.partial(
+            _churn_window, spec, phases=functools.partial(sharding.churn_phases, mesh))
     wps = _round_wps(n_w, windows_per_step, strict_wps)
     chunks = []
     for s in range(0, n_w, wps):
@@ -1023,15 +1220,12 @@ def run_churn(
         for w, acc in enumerate(feed(s, min(s + wps, n_w)), start=s):
             frow = dict(crash=ft.crash[w], restart=ft.restart[w],
                         near_cap=ft.near_cap[w], drop=bool(ft.drop[w]))
-            cs, out = _churn_window(spec, cs, acc, frow, epoch, policy,
-                                    backend, use_gpac, max_batches, budget,
-                                    slack, collect)
+            cs, out = window_fn(cs, acc, frow, epoch, policy, backend, use_gpac,
+                                max_batches, budget, slack, collect)
             epoch += 1
             outs.append(out)
-        chunks.append({k: torch.stack([o[k] for o in outs]).cpu().numpy()
-                       for k in outs[0]})
-    series = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-    return cs, series
+        chunks.append(_to_host(outs))
+    return cs, _stack_series(chunks)
 
 
 def step_churn(

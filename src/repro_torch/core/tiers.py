@@ -20,8 +20,9 @@ flows and this cascade on it. ``compressed`` (demote-into-compressed, arXiv 2404
 tier, and :func:`tco_metrics` prices a placement (the ``tco`` collector).
 
 In place: ``swap_flow`` writes the block table, the slot owners and both
-pools of the state handed in. The host-sharded ``compressed`` tick waits for the sharded engine (ROADMAP
-queue 1, item 13).
+pools of the state handed in. ``compressed`` also has a host-partitioned
+tick (``_compressed_prepare`` / ``_compressed_apply``, for
+``engine.run_sharded(host_sharded=True)``).
 """
 from __future__ import annotations
 
@@ -32,10 +33,20 @@ import torch
 from repro_torch.core import metrics
 from repro_torch.core.tiering import (
     NEG,
+    _b,
+    _cand_kw,
+    _flat_cands,
     _in_range,
+    _pair_k,
     _paired_ids,
+    _swap_stats,
+    apply_swaps_local,
     block_score_arrays,
+    nominate,
+    rank_select,
     register_policy,
+    register_sharded_tick,
+    slots_after_swaps,
     swap_flow,
 )
 from repro_torch.core.types import GpacConfig, TieredState, allocated_hp_mask
@@ -482,13 +493,87 @@ def tco_metrics(
     )
 
 
-def _sharded_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "the host-sharded 'compressed' tick (_compressed_prepare, flow_outcome, "
-        "_compressed_apply) is not ported to PyTorch yet (ROADMAP queue 1, item 13)")
+def _compressed_prepare(cfg: GpacConfig, L: dict, budget: int,
+                        tiers: TierVector | None = None) -> dict:
+    """The host-partitioned ``compressed`` tick's nominations: per adjacent
+    pair, the demotion's free lower blocks and coldest upper ones, the
+    promotion's hot lower blocks and its victims, and the upper tier's free
+    count."""
+    tv = as_vector(cfg, tiers)
+    b = _b(cfg, budget)
+    kw = _cand_kw(L)
+    valid = L["hp_ids"] >= 0
+    score = block_score_arrays(L["hc"], L["hh"])
+    alloc = L["alloc"]
+    vict = torch.where(alloc, score, NEG + 1)
+    zero = torch.zeros_like(score)
+    cands, sums = {}, {}
+    for t in range(tv.n_tiers - 1):
+        in_u = _in_range(cfg, L["bt"], tv.bounds(t))
+        in_d = _in_range(cfg, L["bt"], tv.bounds(t + 1))
+        cands[f"df{t}"] = nominate(valid & in_d & ~alloc, zero, b, **kw)
+        cands[f"dv{t}"] = nominate(valid & in_u & alloc, -score, b, **kw)
+        cands[f"ph{t}"] = nominate(valid & alloc & in_d & (score > 0), score, b, **kw)
+        cands[f"pv{t}"] = nominate(valid & in_u, -vict, b, **kw)
+        sums[f"free{t}"] = (valid & in_u & ~alloc).sum().to(torch.int32)
+    return dict(cands=cands, sums=sums)
 
 
-_compressed_prepare = flow_outcome = _compressed_apply = _sharded_not_ported
+def flow_outcome(cfg: GpacConfig, lo: dict, hi: dict, k,
+                 hi_bounds: tuple[int, int], lo_bounds: tuple[int, int]):
+    """``tiering.swap_outcome`` with tier bounds: which arbitrated pairs
+    commit under ``swap_flow``'s predicate, and the stats deltas."""
+    u_lo, u_hi = hi_bounds
+    d_lo, d_hi = lo_bounds
+    i = torch.arange(lo["id"].shape[0], device=lo["id"].device)
+    ok = ((i < k) & (lo["id"] >= 0) & (hi["id"] >= 0)
+          & (lo["slot"] >= d_lo) & (lo["slot"] < d_hi)
+          & (hi["slot"] >= u_lo) & (hi["slot"] < u_hi))
+    return ok, _swap_stats(ok, lo, hi)
+
+
+def _compressed_apply(cfg: GpacConfig, L: dict, merged: dict, budget: int,
+                      tiers: TierVector | None = None, free_frac: float = 0.1):
+    """Arbitrate the ``compressed`` tick's rounds top-down, each candidate's
+    slot chased through every committed round (the live placement the
+    replicated tick's ``swap_flow`` reads)."""
+    tv = as_vector(cfg, tiers)
+    b = _b(cfg, budget)
+    C = {k: _flat_cands(v) for k, v in merged["cands"].items()}
+    rounds = []
+    bt = L["bt"]
+
+    def current(c):
+        slot = c["slot"]
+        for lo_r, hi_r, ok_r in rounds:
+            slot = slots_after_swaps(c["id"], slot, lo_r, hi_r, ok_r)
+        return {**c, "slot": slot}
+
+    zero = torch.zeros((), dtype=torch.int32, device=bt.device)
+    stats = dict(promoted_blocks=zero, demoted_blocks=zero, tlb_shootdowns=zero)
+    for t in range(tv.n_tiers - 1):
+        u_bounds, d_bounds = tv.bounds(t), tv.bounds(t + 1)
+        want = int(free_frac * (u_bounds[1] - u_bounds[0]))
+        n_demote = (want - merged["sums"][f"free{t}"]).clamp(0, budget)
+        lo = current(rank_select(C[f"df{t}"], b))
+        hi = current(rank_select(C[f"dv{t}"], b))
+        ok, d = flow_outcome(cfg, lo, hi, torch.minimum(_pair_k(lo, hi), n_demote),
+                             u_bounds, d_bounds)
+        bt = apply_swaps_local(bt, L["hp_lo"], L["hp_hi"], lo, hi, ok)
+        rounds.append((lo, hi, ok))
+        stats = {s: stats[s] + d[s] for s in stats}
+
+        lo = current(rank_select(C[f"ph{t}"], b))
+        hi = current(rank_select(C[f"pv{t}"], b))
+        gain = torch.where((lo["id"] >= 0) & (hi["id"] >= 0), lo["val"] > -hi["val"], False)
+        k = torch.minimum(_pair_k(lo, hi), gain.to(torch.int32).cumprod(0).sum())
+        ok, d = flow_outcome(cfg, lo, hi, k, u_bounds, d_bounds)
+        bt = apply_swaps_local(bt, L["hp_lo"], L["hp_hi"], lo, hi, ok)
+        rounds.append((lo, hi, ok))
+        stats = {s: stats[s] + d[s] for s in stats}
+    return bt, stats, tuple(rounds)
+
 
 register_policy("compressed", compressed_tick)
 register_policy("hybridtier", hybridtier_tick)
+register_sharded_tick("compressed", _compressed_prepare, _compressed_apply)

@@ -9,12 +9,19 @@ and an unchanged one is loaded as it is. Nothing is built when a module is
 imported: :func:`library` builds on its first call, which the
 kernel wrappers make at their first launch on a CUDA tensor.
 
+Ranks of a sharded run that launch their first kernel together build once:
+:func:`library` takes a file lock (``out_dir/.lock``) before it builds,
+looks for the library again under the lock, and writes its objects under
+names of its own process, so no process links another's half-written
+object.
+
 Each C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 turns a non-zero status into an exception.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -72,10 +79,11 @@ def _digest(sources: list[Path]) -> str:
 
 def _compile(nvcc: str, sources: list[Path], out_dir: Path) -> Path:
     """Compile every source to an object in parallel, then link the objects
-    into one shared library; the compiler's output goes to ``build.log``."""
+    into one shared library; the compiler's output goes to ``build.log``.
+    The objects carry this process's id and are removed after the link."""
     procs = []
     for src in sources:
-        obj = out_dir / f"{src.stem}.o"
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -97,6 +105,8 @@ def _compile(nvcc: str, sources: list[Path], out_dir: Path) -> Path:
             failed.append("link")
         else:
             os.replace(tmp, so)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
     (out_dir / "build.log").write_text("\n".join(log))
     if failed:
         raise RuntimeError(
@@ -114,10 +124,14 @@ def library() -> ctypes.CDLL:
     out_dir = BUILD_ROOT / _digest(sources)
     so = out_dir / "librepro_torch_kernels.so"
     t0 = time.perf_counter()
-    built = not so.exists()
-    if built:
+    built = False
+    if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        so = _compile(_nvcc(), sources, out_dir)
+        with open(out_dir / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not so.exists():  # another process may have built it meanwhile
+                so = _compile(_nvcc(), sources, out_dir)
+                built = True
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

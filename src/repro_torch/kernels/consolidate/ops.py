@@ -83,10 +83,11 @@ def consolidate_gather(src_rows: torch.Tensor, ids: torch.Tensor) -> torch.Tenso
         return out
     ids = ids.contiguous()
     lib = build.library()
-    registry.count_launch(name)
-    build.check(lib.rt_consolidate_gather(
-        src_rows.data_ptr(), src_rows.shape[0], src_rows.shape[1] * src_rows.element_size(),
-        ids.data_ptr(), ids.shape[0], out.data_ptr(), runtime.stream()), name)
+    with torch.cuda.device(src_rows.device):
+        registry.count_launch(name)
+        build.check(lib.rt_consolidate_gather(
+            src_rows.data_ptr(), src_rows.shape[0], src_rows.shape[1] * src_rows.element_size(),
+            ids.data_ptr(), ids.shape[0], out.data_ptr(), runtime.stream(src_rows.device)), name)
     return out
 
 
@@ -103,10 +104,11 @@ def consolidate_scatter(dst_rows: torch.Tensor, region: torch.Tensor,
         return dst_rows
     region, ids = region.contiguous(), ids.contiguous()
     lib = build.library()
-    registry.count_launch(name)
-    build.check(lib.rt_consolidate_scatter(
-        dst_rows.data_ptr(), dst_rows.shape[0], dst_rows.shape[1] * dst_rows.element_size(),
-        region.data_ptr(), ids.data_ptr(), ids.shape[0], runtime.stream()), name)
+    with torch.cuda.device(dst_rows.device):
+        registry.count_launch(name)
+        build.check(lib.rt_consolidate_scatter(
+            dst_rows.data_ptr(), dst_rows.shape[0], dst_rows.shape[1] * dst_rows.element_size(),
+            region.data_ptr(), ids.data_ptr(), ids.shape[0], runtime.stream(dst_rows.device)), name)
     return dst_rows
 
 

@@ -86,10 +86,11 @@ def flash_attention(q, k, v, causal=True, block_q=128, block_k=128):
     runtime.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name,
                     "q, k and v must be 16-byte aligned")
     lib = build.library()
-    registry.count_launch(name)
-    build.check(lib.rt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KVH, S, Sk, hd,
-        int(causal), hd ** -0.5, _DTYPES[q.dtype], runtime.stream()), name)
+    with torch.cuda.device(q.device):
+        registry.count_launch(name)
+        build.check(lib.rt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KVH, S, Sk, hd,
+            int(causal), hd ** -0.5, _DTYPES[q.dtype], runtime.stream(q.device)), name)
     return out
 
 

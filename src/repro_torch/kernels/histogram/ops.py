@@ -41,10 +41,11 @@ def bincount(ids: torch.Tensor, weights: torch.Tensor, n_bins: int) -> torch.Ten
     if ids.numel() == 0:
         return out
     lib = build.library()
-    registry.count_launch("bincount")
-    build.check(lib.rt_bincount(
-        ids.data_ptr(), weights.data_ptr(), ids.numel(), n_bins,
-        out.data_ptr(), runtime.stream()), "bincount")
+    with torch.cuda.device(ids.device):
+        registry.count_launch("bincount")
+        build.check(lib.rt_bincount(
+            ids.data_ptr(), weights.data_ptr(), ids.numel(), n_bins,
+            out.data_ptr(), runtime.stream(ids.device)), "bincount")
     return out
 
 

@@ -35,10 +35,11 @@ def hot_count(hot: torch.Tensor, hp_ratio: int) -> torch.Tensor:
     if n_hp == 0:
         return out
     lib = build.library()
-    registry.count_launch("hot_count")
-    build.check(lib.rt_hot_count(
-        hot.data_ptr(), n_hp, hp_ratio, out.data_ptr(), runtime.stream()),
-        "hot_count")
+    with torch.cuda.device(hot.device):
+        registry.count_launch("hot_count")
+        build.check(lib.rt_hot_count(
+            hot.data_ptr(), n_hp, hp_ratio, out.data_ptr(), runtime.stream(hot.device)),
+            "hot_count")
     return out
 
 

@@ -102,7 +102,7 @@ def _workspace(device: torch.device, n_acc: int, n_ml: int, n_rows: int):
     """The split partials and the per-(b, kvh) tickets of one stream, grown
     when a larger call arrives. The tickets are zeroed once, here: the
     kernel leaves them at 0."""
-    key = (device.index, runtime.stream())
+    key = (device.index, runtime.stream(device))
     ws = _WORKSPACE.get(key)
     if ws is None or ws[0].numel() < n_acc or ws[1].numel() < n_ml or ws[2].numel() < n_rows:
         old = ws or (torch.empty(0), torch.empty(0), torch.empty(0))
@@ -148,12 +148,13 @@ def _launch(q, k_pages, v_pages, btab, lens, splits: int | None = None):
     part_acc, part_ml, tickets = _workspace(
         q.device, B * KVH * splits * G * hd, B * KVH * splits * G * 2, B * KVH)
     lib = build.library()
-    registry.count_launch(name)
-    build.check(lib.rt_paged_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), btab.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        tickets.data_ptr(), B, KVH, G, hd, n_pool, page, pps, splits, hd ** -0.5,
-        _DTYPES[q.dtype], runtime.stream()), name)
+    with torch.cuda.device(q.device):
+        registry.count_launch(name)
+        build.check(lib.rt_paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), btab.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            tickets.data_ptr(), B, KVH, G, hd, n_pool, page, pps, splits, hd ** -0.5,
+            _DTYPES[q.dtype], runtime.stream(q.device)), name)
     return out
 
 

@@ -3,7 +3,10 @@
 Entry points run on CUDA unless the caller names another device; with no
 CUDA device they raise rather than fall back to the CPU. A kernel wrapper
 launches its kernel for a CUDA tensor and runs its plain version only for a
-tensor that lies on the CPU.
+tensor that lies on the CPU. A wrapper launches under ``torch.cuda.device`` of
+its tensors, on that device's current stream (:func:`stream`), whatever
+device the caller has current (a rank of a sharded run, a state built on
+``cuda:1``).
 """
 from __future__ import annotations
 
@@ -35,9 +38,10 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
-def stream() -> int:
-    """The current CUDA stream of the current device, as a pointer value."""
-    return torch.cuda.current_stream().cuda_stream
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` (the kernel's tensors' device,
+    not the process's current one), as a pointer value."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def require(cond: bool, name: str, what: str) -> None:

@@ -47,11 +47,12 @@ def gather_rows(rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return out
     flat = ids.reshape(-1).contiguous()
     lib = build.library()
-    registry.count_launch("gather_rows")
-    build.check(lib.rt_gather_rows(
-        rows.data_ptr(), rows.shape[0], rows.shape[1] * rows.element_size(),
-        flat.data_ptr(), flat.numel(), out.data_ptr(), runtime.stream()),
-        "gather_rows")
+    with torch.cuda.device(rows.device):
+        registry.count_launch("gather_rows")
+        build.check(lib.rt_gather_rows(
+            rows.data_ptr(), rows.shape[0], rows.shape[1] * rows.element_size(),
+            flat.data_ptr(), flat.numel(), out.data_ptr(), runtime.stream(rows.device)),
+            "gather_rows")
     return out
 
 

@@ -48,10 +48,11 @@ def topk_rows(mat: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     build.check(lib.rt_topk_scratch(rows, width, k, ctypes.addressof(sizes)), "topk_rows")
     scratch = torch.empty(sizes[0], dtype=torch.uint8, device=mat.device)
     zeroed = torch.zeros(sizes[1], dtype=torch.uint8, device=mat.device)
-    registry.count_launch("topk_rows")
-    build.check(lib.rt_topk_rows(
-        mat.data_ptr(), rows, width, k, vals.data_ptr(), idx.data_ptr(),
-        scratch.data_ptr(), zeroed.data_ptr(), runtime.stream()), "topk_rows")
+    with torch.cuda.device(mat.device):
+        registry.count_launch("topk_rows")
+        build.check(lib.rt_topk_rows(
+            mat.data_ptr(), rows, width, k, vals.data_ptr(), idx.data_ptr(),
+            scratch.data_ptr(), zeroed.data_ptr(), runtime.stream(mat.device)), "topk_rows")
     return vals, idx
 
 

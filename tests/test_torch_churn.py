@@ -335,8 +335,12 @@ def test_unported_paths_raise(fleet, j):
     tr = fleet.traces["histogram"]
     with pytest.raises(TypeError, match="expected a TraceSource"):  # the JAX package's
         engine.run_churn(fleet.spec, cs, j.engine.SynthTrace(4, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        engine.run_churn(fleet.spec, cs, tr, mesh=object(), device="cpu")
+    # a mesh whose rank runs on another device than the carry is refused
+    from repro_torch.core import sharding
+
+    other = sharding.GuestMesh(None, 0, 1, torch.device("meta"), "gloo")
+    with pytest.raises(ValueError, match="the mesh's rank runs on meta"):
+        engine.run_churn(fleet.spec, cs, tr, mesh=other, device="cpu")
     # an N-tier vector makes the controller the reference's per-tier cascade
     from repro.core import tiers as jtiers
     from repro_torch.core import tiers

@@ -202,8 +202,16 @@ def test_empty_and_unknown_inputs(bench):
     with pytest.raises(ValueError, match="unknown workload"):
         engine.run(bench.spec, st, engine.SynthTrace(2, 16, workloads=("nope", "redis")),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        engine.run_sharded(bench.spec, st, engine.SynthTrace(2, 16))
+    # no mesh in a one-rank job: run_sharded is run
+    synth = engine.SynthTrace(2, 16)
+    a = engine.run_sharded(bench.spec, interop.state_from_numpy(bench.state0, device="cpu"),
+                           synth, device="cpu")
+    b = engine.run(bench.spec, interop.state_from_numpy(bench.state0, device="cpu"), synth,
+                   device="cpu")
+    assert a[1].keys() == b[1].keys()
+    for k in b[1]:
+        np.testing.assert_array_equal(a[1][k], b[1][k])
+    np.testing.assert_array_equal(a[0].rmap.numpy(), b[0].rmap.numpy())
     with pytest.raises(ValueError, match="tiers entries must be TierSpec"):  # the JAX package's
         engine.HostSpec(tiers=("near", "far"))
 

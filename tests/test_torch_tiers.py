@@ -24,9 +24,10 @@ from repro.core import engine as jengine  # noqa: E402
 from repro.core import faults as jfaults  # noqa: E402
 from repro.core import tiering as jtiering  # noqa: E402
 from repro.core import tiers as jtiers  # noqa: E402
+from repro.core import types as jtypes  # noqa: E402
 from repro.serve import engine as jserve  # noqa: E402
 from repro_torch import interop  # noqa: E402
-from repro_torch.core import engine, faults, tiering, tiers  # noqa: E402
+from repro_torch.core import engine, faults, tiering, tiers, types  # noqa: E402
 from repro_torch.serve import engine as serve  # noqa: E402
 
 GUESTS = (  # (n_logical, cl, gpa_slack, workload, seed)
@@ -138,7 +139,9 @@ def ref():
 
 def test_spec_validation_matches_reference():
     """TierSpec, TierVector, resolve and HostSpec(tiers=...) refuse the same
-    inputs with the JAX package's messages; the sharded tick raises."""
+    inputs with the JAX package's messages; both packages register the
+    host-sharded ``compressed`` tick, and their builtin sharded ticks refuse
+    a 3-tier vector with the same message."""
     for kw in (dict(capacity=0.0), dict(capacity=1.5), dict(latency_ns=0.0),
                dict(bandwidth_gbps=-1.0), dict(compression=0.5), dict(cost_per_gb=-0.1)):
         args = dict(name="x", capacity=0.5, latency_ns=90.0) | kw
@@ -172,10 +175,15 @@ def test_spec_validation_matches_reference():
         with pytest.raises(ValueError) as pe:
             tiers.resolve(one * 2, n, 10) if n == 1 else tiers.resolve(one, 8, 10)
         assert str(pe.value) == str(je.value)
-    # the host-sharded compressed tick waits for the sharded engine
-    for fn in (tiers._compressed_prepare, tiers.flow_outcome, tiers._compressed_apply):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn(None, {}, 4)
+    assert tiering.sharded_ticks() == jtiering.sharded_ticks()
+    cfg = types.GpacConfig(n_logical=256, hp_ratio=16, n_gpa_hp=40, cl=8)
+    jcfg = jtypes.GpacConfig(n_logical=256, hp_ratio=16, n_gpa_hp=40, cl=8)
+    specs, jspecs = tiers.compressed_specs(), jtiers.compressed_specs()
+    with pytest.raises(ValueError) as je:
+        jtiering._check_two_tier(jcfg, jtiers.resolve(jspecs, 40, 16))
+    with pytest.raises(ValueError) as pe:
+        tiering._check_two_tier(cfg, tiers.resolve(specs, 40, 16))
+    assert str(pe.value) == str(je.value)
 
 
 def test_resolve_and_tier_of_slot(ref):
