@@ -124,15 +124,39 @@ first use), then, printing one JSON line per phase:
    fault schedule (the shrink at window 4 drives the pressure cascade),
    kernels and plain identical, per-tier block counts and the tco series
    printed; then phase 14's script on that fleet, kernels against plain.
+18. families -- every other architecture through the serving engine, one
+   at a time, random bf16 weights from a seeded torch.Generator, 16-token
+   pages, 8 sequences: qwen2-moe-a2.7b at full size and the serve phase's
+   traffic (16 requests of 1,024 + 32 tokens), then qwen2-vl-2b, gemma-7b,
+   internlm2-20b, smollm-360m, whisper-tiny (1,500 zero frames),
+   xlstm-1.3b (depth 16 of 48), kimi-k2-1t-a32b (depth 1 of 61) and jamba
+   (its ``reduced()`` config) at 8 requests of 256 + 16 tokens in 512-token
+   slots; each cut is on the arch's line. Each runs GPAC off and on through
+   the kernels and then the plain versions: every request must complete
+   with valid tokens, GPAC must leave the tokens unchanged and consolidate
+   pages where there are attention layers, paged_attention must launch
+   decode steps x attention layers times (0 for xLSTM) and K2-K4 in
+   maintenance, nothing may launch on the plain run, and the first decode
+   step's logits must agree with the plain run's within LOGITS_RTOL. In
+   that first step each K6 call is held to its plain version on the same
+   inputs at SERVE_TOL, and each MoE layer's routing is kept: the line
+   prints how many (token, choice) pairs differ between the kernel and
+   plain runs (a bf16 difference upstream can flip a route). qwen2-moe is
+   profiled for four decode steps as in phase 8. K6 gets a kernel row at
+   each family's decode shape on its GPAC-on cache (bf16; gemma-7b in
+   float32 too, where the kernel's plan drops to 4 warps). The line gives
+   the cache's bytes in three parts: paged K/V, the Mamba / xLSTM layers'
+   recurrent states, and the encoder's K/V (whisper).
 
-The phases run in the order 1-5, 11, 12, 6, 7, 13-17, 8-10. An engine
+The phases run in the order 1-5, 11, 12, 6, 7, 13-17, 8-10, 18. An engine
 kernel row's ``launches`` counts the engine's main path (the memtierd run);
 ``launches_by_path`` adds the churn, reference, engine_synth, churn_synth,
 service, pebs, ntier (the first policy's kernel run, hybridtier),
 ntier_churn and its service runs. Every
 kernel row carries ``floor_aware_bound_ms``: the launch floor (this run's
 time of hot_count on the serve path's 1,632 bytes, ``launch_floor_ms``) plus
-its bound. The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
+its bound. The script's total time is printed before the kernel rows,
+and the last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero; so it does without a CUDA device, and outside a
 checkout of the repository.
 """
@@ -162,6 +186,7 @@ from repro_torch.kernels.consolidate import consolidate_region, scatter_region  
 from repro_torch.kernels.flash_attention import gqa_attention  # noqa: E402
 from repro_torch.memory.embedding import EmbedSpec, TieredEmbeddingStore  # noqa: E402
 from repro_torch.memory.kvcache import KVSpec, TieredKVCache  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve.scheduler import Request, SchedulerConfig  # noqa: E402
@@ -267,15 +292,20 @@ class Timer:
       which adds the host's launch overhead whenever the card waits for it.
     """
 
+    flush_name: str | None = None
+
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
         self.lead = torch.zeros(1, device=device)
         # the flush kernel's full name (a call may run bitwise_not on other
-        # dtypes): the last device event of a trace that ends with flushes
-        events = self._trace(lambda: [self._flush() for _ in range(4)])
-        if not events:
-            raise RuntimeError("torch.profiler traced no device event")
-        self.flush_name = events[-1][0]
+        # dtypes): the last device event of a trace that ends with flushes.
+        # Found by the process's first Timer: a trace late in a long process
+        # can lose every device event (its rows then fall back to events)
+        if Timer.flush_name is None:
+            events = self._trace(lambda: [self._flush() for _ in range(4)])
+            if not events:
+                raise RuntimeError("torch.profiler traced no device event")
+            Timer.flush_name = events[-1][0]
 
     def _flush(self):
         torch.bitwise_not(self.flush, out=self.flush)
@@ -1594,6 +1624,8 @@ def sharded_ranks_phase(device) -> dict:
 SERVE = dict(max_seqs=8, max_seq_len=2048, page_size=16, pages_per_block=4,
              near_fraction=0.4, maintenance_every=8, reserve_tokens=8)
 N_REQUESTS, PROMPT_LEN, MAX_NEW = 16, 1024, 32
+SERVE_TRAFFIC = dict(n_requests=N_REQUESTS, prompt_len=PROMPT_LEN, max_new=MAX_NEW,
+                     max_seq_len=SERVE["max_seq_len"])
 # Tolerances. paged_attention against its plain version: the same float32
 # sums in another order, so float32 outputs agree within 1e-5 and bf16
 # outputs within one bf16 rounding step (2^-7 relative). The first decode
@@ -1613,9 +1645,10 @@ def serve_model(device):
     return model, model.init(seed=0, device=device)
 
 
-def serve_engine_for(model, params, device, use_gpac: bool, kernel_backend: str):
+def serve_engine_for(model, params, device, use_gpac: bool, kernel_backend: str,
+                     max_seq_len: int = SERVE["max_seq_len"]):
     ecfg = serve_engine.EngineConfig(
-        max_seqs=SERVE["max_seqs"], max_seq_len=SERVE["max_seq_len"],
+        max_seqs=SERVE["max_seqs"], max_seq_len=max_seq_len,
         pages_per_block=SERVE["pages_per_block"], near_fraction=SERVE["near_fraction"],
         sched=SchedulerConfig(max_seqs=SERVE["max_seqs"],
                               maintenance_every=SERVE["maintenance_every"],
@@ -1624,16 +1657,53 @@ def serve_engine_for(model, params, device, use_gpac: bool, kernel_backend: str)
                                kernel_backend=kernel_backend)
 
 
-def serve_requests(vocab: int, n: int | None = None) -> list:
-    n = N_REQUESTS if n is None else n
+def serve_requests(vocab: int, n: int | None = None, traffic: dict = SERVE_TRAFFIC) -> list:
+    n = traffic["n_requests"] if n is None else n
     rng = np.random.default_rng(0)
-    return [Request(rid=i, prompt=rng.integers(0, vocab, PROMPT_LEN).tolist(),
-                    max_new=MAX_NEW) for i in range(n)]
+    return [Request(rid=i, prompt=rng.integers(0, vocab, traffic["prompt_len"]).tolist(),
+                    max_new=traffic["max_new"]) for i in range(n)]
 
 
-def instrument(eng) -> dict:
+class FirstStepProbe:
+    """Inside one decode step: keeps each MoE layer's routing (``moe.route``)
+    and, with ``check_k6``, holds every paged_attention call against its
+    plain version on the same inputs at SERVE_TOL (the plain call launches
+    nothing)."""
+
+    def __init__(self, check_k6: bool):
+        self.check_k6 = check_k6
+        self.routes: list[torch.Tensor] = []
+        self.k6_calls, self.k6_max_abs_err = 0, 0.0
+
+    def __enter__(self):
+        self._route, self._dispatch = moe.route, registry.dispatch
+
+        def route(cfg, p, xt):
+            weights, experts = self._route(cfg, p, xt)
+            self.routes.append(experts.clone())
+            return weights, experts
+
+        def dispatch(name, choice, *args, **kw):
+            out = self._dispatch(name, choice, *args, **kw)
+            if name == "paged_attention" and self.check_k6:
+                want = registry.get_kernel(name).plain(*args, **kw)
+                torch.testing.assert_close(out.float(), want.float(), **SERVE_TOL[out.dtype])
+                self.k6_calls += 1
+                self.k6_max_abs_err = max(self.k6_max_abs_err,
+                                          float((out.double() - want.double()).abs().max()))
+            return out
+
+        moe.route, registry.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        moe.route, registry.dispatch = self._route, self._dispatch
+
+
+def instrument(eng, probe: FirstStepProbe | None = None) -> dict:
     """Time each prefill (between synchronisations) and keep the first
-    decode step's logits, by wrapping the engine's two calls."""
+    decode step's logits, by wrapping the engine's two calls; the first
+    decode step runs inside ``probe`` where one is given."""
     rec = dict(prefill_s=[], first_logits=None)
     prefill, decode = eng._prefill_into_slot, eng.decode_fn
 
@@ -1645,24 +1715,31 @@ def instrument(eng) -> dict:
         rec["prefill_s"].append(time.perf_counter() - t0)
 
     def kept_decode(p, c, t):
-        logits, c = decode(p, c, t)
-        if rec["first_logits"] is None:
-            rec["first_logits"] = logits.clone()
+        if rec["first_logits"] is not None:
+            return decode(p, c, t)
+        if probe is None:
+            logits, c = decode(p, c, t)
+        else:
+            with probe:
+                logits, c = decode(p, c, t)
+        rec["first_logits"] = logits.clone()
         return logits, c
 
     eng._prefill_into_slot, eng.decode_fn = timed_prefill, kept_decode
     return rec
 
 
-def serve_run(model, params, device, use_gpac: bool, kernel_backend: str) -> dict:
+def serve_run(model, params, device, use_gpac: bool, kernel_backend: str,
+              traffic: dict = SERVE_TRAFFIC, probe: FirstStepProbe | None = None) -> dict:
     """The whole batch through one engine; the launch counts are set to 0
     just before and read just after. A step's decode time is its time less
     its prefills'; it includes the GPAC/tier maintenance on its cadence."""
-    eng = serve_engine_for(model, params, device, use_gpac, kernel_backend)
-    reqs = serve_requests(model.cfg.vocab)
+    eng = serve_engine_for(model, params, device, use_gpac, kernel_backend,
+                           traffic["max_seq_len"])
+    reqs = serve_requests(model.cfg.vocab, traffic=traffic)
     for r in reqs:
         eng.sched.submit(r)
-    rec = instrument(eng)
+    rec = instrument(eng, probe)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     registry.reset_launch_counts()
@@ -1676,7 +1753,7 @@ def serve_run(model, params, device, use_gpac: bool, kernel_backend: str) -> dic
     wall = time.perf_counter() - t0
     launches = registry.launch_counts()
     tokens = [r.out for r in reqs]
-    if not all(len(t) == MAX_NEW and all(0 <= x < model.cfg.vocab for x in t)
+    if not all(len(t) == traffic["max_new"] and all(0 <= x < model.cfg.vocab for x in t)
                for t in tokens):
         raise AssertionError("a request did not complete with valid tokens")
     if not torch.isfinite(rec["first_logits"]).all():
@@ -1760,46 +1837,53 @@ def serve_profile_phase(model, params, device, n_steps: int = 4) -> dict:
                 **device_summary(prof, PORT_SERVE_KERNELS, n_steps, "step"))
 
 
+def paged_attention_case(eng, layer: str, dtype, lens: torch.Tensor, gen: torch.Generator,
+                         note: str = "") -> tuple:
+    """K6 on one attention layer's pages of an engine's cache (group 0) at
+    the decode shape, in ``dtype``, with a random q and the yardstick: SDPA
+    over K/V gathered into contiguous rows beforehand."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    cfg, dev = eng.model.cfg, eng.device
+    B, KVH, G, hd = SERVE["max_seqs"], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    kp = eng.cache["layers"][layer]["k_pages"][0]
+    vp = eng.cache["layers"][layer]["v_pages"][0]
+    btab = eng.cache["btab"]
+    pps, page = btab.shape[1], cfg.page_size
+    q = torch.randn((B, KVH, G, hd), generator=gen, device=dev).to(dtype)
+    k, v = kp.to(dtype), vp.to(dtype)
+    bidx = torch.arange(B, device=dev)[:, None]
+    safe = btab.clamp(0, k.shape[2] - 1).long()
+    kg = k[bidx, :, safe].transpose(1, 2).reshape(B, KVH, pps * page, hd).contiguous()
+    vg = v[bidx, :, safe].transpose(1, 2).reshape(B, KVH, pps * page, hd).contiguous()
+    mask = (torch.arange(pps * page, device=dev) < lens[:, None])[:, None, None, :]
+    qs = q.reshape(B, KVH * G, 1, hd)
+    n_tok = int(lens.clamp(0, pps * page).sum())
+    row = hd * q.element_size()
+    nbytes = 2 * n_tok * KVH * row + 2 * _nbytes(q) + _nbytes(btab, lens)
+    return (
+        "paged_attention", f"decode {str(dtype)[6:]} B={B} KVH={KVH} G={G} hd={hd} "
+        f"page={page} pps={pps} len={int(lens.min())}-{int(lens.max())}" + note,
+        (q, k, v, btab, lens),
+        lambda: sdpa(qs, kg, vg, attn_mask=mask, enable_gqa=True),
+        nbytes, 4 * G * hd * n_tok * KVH, SERVE_TOL[dtype])
+
+
 def serve_kernel_cases(eng, gen: torch.Generator) -> list:
     """The serving path's kernels at its shapes, on the GPAC-on run's final
     cache and placement state: paged_attention on layer 0's pages at the
     full-width decode shape (bf16, the same data in float32, and bf16 at
     ragged lens), hot_count at 4 pages per block, gather_rows on the 8-byte
     placement rows and topk_rows on one daemon's filter row."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    cfg, pcfg = eng.model.cfg, eng.pcfg
-    dev = eng.device
-    B, KVH, G, hd = SERVE["max_seqs"], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
-    kp = eng.cache["layers"]["layer0"]["k_pages"][0]
-    vp = eng.cache["layers"]["layer0"]["v_pages"][0]
-    btab, lens = eng.cache["btab"], eng.cache["lens"] + 1
-    pps, page = btab.shape[1], cfg.page_size
+    pcfg, dev = eng.pcfg, eng.device
+    lens = eng.cache["lens"] + 1
     # ragged: per-sequence lens across the cache's range (on no path)
-    ragged = torch.randint(16, SERVE["max_seq_len"] + 1, (B,), generator=gen, device=dev,
-                           dtype=torch.int32)
-    cases = []
-    for dtype, lens in ((torch.bfloat16, lens), (torch.float32, lens), (torch.bfloat16, ragged)):
-        q = torch.randn((B, KVH, G, hd), generator=gen, device=dev).to(dtype)
-        k, v = kp.to(dtype), vp.to(dtype)
-        # the yardstick reads K/V gathered into contiguous rows beforehand
-        bidx = torch.arange(B, device=dev)[:, None]
-        safe = btab.clamp(0, k.shape[2] - 1).long()
-        kg = k[bidx, :, safe].transpose(1, 2).reshape(B, KVH, pps * page, hd).contiguous()
-        vg = v[bidx, :, safe].transpose(1, 2).reshape(B, KVH, pps * page, hd).contiguous()
-        mask = (torch.arange(pps * page, device=dev) < lens[:, None])[:, None, None, :]
-        qs = q.reshape(B, KVH * G, 1, hd)
-        n_tok = int(lens.clamp(0, pps * page).sum())
-        row = hd * q.element_size()
-        nbytes = 2 * n_tok * KVH * row + 2 * _nbytes(q) + _nbytes(btab, lens)
-        cases.append((
-            "paged_attention", f"decode {str(dtype)[6:]} B={B} KVH={KVH} G={G} hd={hd} "
-            f"page={page} pps={pps} len={int(lens.min())}-{int(lens.max())}"
-            + (" ragged (on no path)" if lens is ragged else ""),
-            (q, k, v, btab, lens),
-            lambda qs=qs, kg=kg, vg=vg, mask=mask: sdpa(qs, kg, vg, attn_mask=mask,
-                                                        enable_gqa=True),
-            nbytes, 4 * G * hd * n_tok * KVH, SERVE_TOL[dtype]))
+    ragged = torch.randint(16, SERVE["max_seq_len"] + 1, (SERVE["max_seqs"],), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cases = [paged_attention_case(eng, "layer0", dtype, lens_, gen,
+                                  " ragged (on no path)" if lens_ is ragged else "")
+             for dtype, lens_ in ((torch.bfloat16, lens), (torch.float32, lens),
+                                  (torch.bfloat16, ragged))]
     st = eng.pstate
     hot = telemetry.hot_mask(pcfg, st, "ipt")
     hot_gpa = torch.where(st.rmap >= 0, hot[st.rmap.clamp(min=0)], False)
@@ -2005,7 +2089,150 @@ def memory_phase(model, params, device, gen) -> dict:
     return line
 
 
+# --------------------------------------------------------------------------
+# 18. families: every other architecture over the GPAC-tiered paged KV cache
+# --------------------------------------------------------------------------
+FAMILY_TRAFFIC = dict(n_requests=8, prompt_len=256, max_new=16, max_seq_len=512)
+# (arch, traffic, the cut as printed): the published configs in bf16 with
+# 16-token pages; qwen2-moe at the serve phase's own traffic
+FAMILIES = (
+    ("qwen2-moe-a2.7b", SERVE_TRAFFIC, None),
+    ("qwen2-vl-2b", FAMILY_TRAFFIC, None),
+    ("gemma-7b", FAMILY_TRAFFIC, None),
+    ("internlm2-20b", FAMILY_TRAFFIC, None),
+    ("smollm-360m", FAMILY_TRAFFIC, None),
+    ("whisper-tiny", FAMILY_TRAFFIC, None),
+    # its prefill runs the recurrence token by token: 4.8 s a request at 48
+    ("xlstm-1.3b", FAMILY_TRAFFIC, "depth 16 of 48 (two super-blocks of 7 mLSTM + 1 sLSTM)"),
+    # one MoE layer of 384 experts is 33.8 GB: 61 of them do not fit one card
+    ("kimi-k2-1t-a32b", FAMILY_TRAFFIC, "depth 1 of 61 (one MoE layer: 33.8 GB of experts)"),
+    # one full-width super-block holds four MoE layers of 77 GB
+    ("jamba-1.5-large-398b", FAMILY_TRAFFIC,
+     "reduced(): 8 layers, d_model 64 (a full-width super-block is over 80 GB)"),
+)
+FAMILY_F32_ROW = "gemma-7b"  # K6 in float32 at hd 256: its plan drops to 4 warps
+
+
+def family_config(arch: str, cut: str | None):
+    """The published config with 16-token pages, cut as ``cut`` says:
+    ``reduced()``, or ``depth N`` (the first N layers)."""
+    if cut is not None and cut.startswith("reduced"):
+        cfg = configs.reduced(arch)
+    else:
+        cfg = configs.get(arch)
+        if cut is not None and cut.startswith("depth "):
+            cfg = cfg.replace(n_layers=int(cut.split()[1]))
+    return cfg.replace(page_size=SERVE["page_size"])
+
+
+def family_phase(arch: str, traffic: dict, cut: str | None, device,
+                 gen: torch.Generator) -> tuple:
+    """One architecture through ``Engine``: GPAC off and on through the
+    kernels, then the plain versions, each from its first request to its
+    last; the first decode step of each run inside a FirstStepProbe.
+    Returns the line, the K6 cases on the GPAC-on run's cache, the model
+    and its params."""
+    cfg = family_config(arch, cut)
+    model = model_registry.build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_attn = cfg.n_attn_layers
+    runs, probes = {}, {}
+    for key, use_gpac, backend in (("kernels_gpac_off", False, "auto"),
+                                   ("kernels_gpac_on", True, "auto"),
+                                   ("plain_gpac_on", True, "torch")):
+        probes[key] = FirstStepProbe(check_k6=backend == "auto")
+        runs[key] = serve_run(model, params, device, use_gpac, backend, traffic, probes[key])
+        counts = runs[key]["launches"]
+        if backend == "torch" and any(counts.values()):
+            raise AssertionError(f"{arch} {key}: the plain run launched kernels: {counts}")
+        if backend == "auto" and counts["paged_attention"] != runs[key]["decode_steps"] * n_attn:
+            raise AssertionError(f"{arch} {key}: paged_attention launched "
+                                 f"{counts['paged_attention']} times in "
+                                 f"{runs[key]['decode_steps']} decode steps x {n_attn} layers")
+        missing = [k for k in SERVE_KERNELS[0 if n_attn else 1:] if counts[k] == 0]
+        if backend == "auto" and use_gpac and missing:
+            raise AssertionError(f"{arch} {key}: kernels never launched on the path: {missing}")
+        if backend == "auto" and probes[key].k6_calls != n_attn:
+            raise AssertionError(f"{arch} {key}: {probes[key].k6_calls} K6 calls held to the "
+                                 f"plain version in the first decode step, not {n_attn}")
+        if key != "kernels_gpac_on":
+            del runs[key]["eng"]  # free its cache
+    on, off, plain = runs["kernels_gpac_on"], runs["kernels_gpac_off"], runs["plain_gpac_on"]
+    if on["tokens"] != off["tokens"]:
+        raise AssertionError(f"{arch}: GPAC changed the generated tokens")
+    if n_attn and on["stats"]["consolidated_pages"] == 0:
+        raise AssertionError(f"{arch}: GPAC consolidated nothing: {on['stats']}")
+    diff = float((on["first_logits"] - plain["first_logits"]).abs().max())
+    scale = float(plain["first_logits"].abs().max())
+    if not diff <= LOGITS_RTOL * scale:
+        raise AssertionError(f"{arch}: first decode logits differ by {diff} (largest {scale})")
+    route_k, route_p = probes["kernels_gpac_on"].routes, probes["plain_gpac_on"].routes
+    routing_diffs = sum(int((a != b).sum()) for a, b in zip(route_k, route_p))
+    pairs = [(a, b) for ta, tb in zip(on["tokens"], plain["tokens"]) for a, b in zip(ta, tb)]
+    eng = on.pop("eng")
+    leaves = [(k, t) for lc in eng.cache["layers"].values() for k, t in lc.items()]
+    paged_kv_gb = _nbytes(*(t for k, t in leaves if k in ("k_pages", "v_pages"))) / 1e9
+    state_gb = _nbytes(*(t for k, t in leaves if k not in ("k_pages", "v_pages"))) / 1e9
+    enc_kv_gb = _nbytes(*(eng.cache[k] for k in ("enc_k", "enc_v") if k in eng.cache)) / 1e9
+    keep = ("decode_steps", "prefill_s", "n_prefills", "s_per_decode_step",
+            "s_per_decode_step_mean", "wall_s", "tokens_per_s", "peak_gb", "launches")
+    line = dict(
+        phase="families", arch=cfg.name, cut=cut, family=cfg.family, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, params=cfg.param_count(), active_params=cfg.active_param_count(),
+        n_attn_layers=n_attn, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        dtype=str(cfg.dtype), init_s=init_s,
+        **traffic, max_seqs=SERVE["max_seqs"], page_size=cfg.page_size,
+        paged_kv_gb=paged_kv_gb, recurrent_state_gb=state_gb, encoder_kv_gb=enc_kv_gb,
+        runs={k: {f: r[f] for f in keep} for k, r in runs.items()},
+        stats_gpac_on=on["stats"], stats_gpac_off=off["stats"],
+        tokens_identical_gpac_on_off=True,
+        first_logits_max_abs_diff_vs_plain=diff, first_logits_max_abs=scale,
+        logits_rtol=LOGITS_RTOL,
+        first_step_moe_layers=len(route_k), first_step_routing_diffs=routing_diffs,
+        first_step_k6_calls_checked=probes["kernels_gpac_on"].k6_calls,
+        first_step_k6_max_abs_err=max(probes[k].k6_max_abs_err
+                                      for k in ("kernels_gpac_off", "kernels_gpac_on")),
+        token_agreement_vs_plain=sum(a == b for a, b in pairs) / len(pairs))
+    cases = []
+    if n_attn:  # K6 at this family's decode shape, on its GPAC-on cache
+        layer = f"layer{cfg.attn_layers[0] % cfg.group_size}"
+        lens = eng.cache["lens"] + 1
+        dtypes = (torch.bfloat16, torch.float32) if arch == FAMILY_F32_ROW else (torch.bfloat16,)
+        cases = [paged_attention_case(eng, layer, dt, lens, gen, f" ({cfg.name})")
+                 for dt in dtypes]
+    return line, cases, model, params
+
+
+def families_phase(device, gen: torch.Generator) -> tuple[list, list]:
+    """Every other architecture, one at a time (each freed before the
+    next), with qwen2-moe profiled; returns the lines and the K6 rows."""
+    lines, rows = [], []
+    for arch, traffic, cut in FAMILIES:
+        t0 = time.perf_counter()
+        line, cases, model, params = family_phase(arch, traffic, cut, device, gen)
+        fam_rows = kernels_phase(cases, device, f"families:{line['arch']}") if cases else []
+        for row in fam_rows:  # the main path's launches: the GPAC-on kernel run
+            row["launches"] = line["runs"]["kernels_gpac_on"]["launches"]["paged_attention"]
+        rows += fam_rows
+        del cases
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == "qwen2-moe-a2.7b":
+            line["profile"] = serve_profile_phase(model, params, device)
+        line["phase_s"] = time.perf_counter() - t0
+        emit(line)
+        lines.append(line)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return lines, rows
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     device, _ = device_phase()
     build_phase()
     t0 = time.perf_counter()
@@ -2107,11 +2334,16 @@ def main() -> None:
     del cases, spec
     torch.cuda.empty_cache()
     emit(memory_phase(model, params, device, gen))
-    rows = kernel_rows + serve_rows + registry_rows
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, family_rows = families_phase(device, gen)
+    rows = kernel_rows + serve_rows + registry_rows + family_rows
     # the launch floor: this run's time of K2 on the serve path's 1,632 bytes
     floor = next(r["ms"] for r in serve_rows if r["name"] == "hot_count")
     for row in rows:
         row.update(launch_floor_ms=floor, floor_aware_bound_ms=floor + row["bound_ms"])
+    emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

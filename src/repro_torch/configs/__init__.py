@@ -1,14 +1,13 @@
 """Architecture configs (port of ``repro.configs``).
 
-``get(name)`` returns the published config, ``reduced(name)`` the small
-same-family variant for CPU tests. Only ``qwen2-0.5b`` is ported; every
-other arch id of the reference raises.
+``get(name)`` returns the published config (CLI id or module name),
+``reduced(name)`` the small same-family variant for CPU tests.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig  # noqa: F401
+from repro_torch.configs.base import SHAPE_SPECS, SHAPES, ArchConfig  # noqa: F401
 
 # the reference's CLI ids, in its order
 CLI_IDS = (
@@ -23,18 +22,14 @@ CLI_IDS = (
     "whisper-tiny",
     "xlstm-1.3b",
 )
-_PORTED = {"qwen2-0.5b": "qwen2_0_5b", "qwen2_0_5b": "qwen2_0_5b"}
-_MODULE_NAMES = {cli.replace("-", "_").replace(".", "_") for cli in CLI_IDS}
+_MODULES = {cli: cli.replace("-", "_").replace(".", "_") for cli in CLI_IDS}
+_MODULES.update({v: v for v in list(_MODULES.values())})  # module-style names too
 
 
 def _module(name: str):
-    if name in _PORTED:
-        return importlib.import_module(f"repro_torch.configs.{_PORTED[name]}")
-    if name in CLI_IDS or name in _MODULE_NAMES:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (ROADMAP queue 1, item "
-            "15: the model-layer stack; only qwen2-0.5b, the dense family, runs)")
-    raise KeyError(f"unknown arch {name!r}; have {sorted(CLI_IDS)}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(set(_MODULES))}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 
 def get(name: str) -> ArchConfig:

@@ -4,9 +4,12 @@ packages as numpy arrays.
 A state travels as a dict of numpy arrays under ``TieredState``'s field
 names (those of the JAX package too), with ``stats`` a nested dict of 0-d
 arrays; a churn carry as a dict under ``ChurnState``'s field names, its
-``state`` such a dict. Params and caches travel as the nested dicts the JAX package uses
-(``groups/layer0/attn/wq``, ``layers/layer0/k_pages``, ``btab``, ``lens``),
-with numpy leaves; a bfloat16 leaf may be an ``ml_dtypes`` bfloat16 array.
+``state`` such a dict. Params and caches travel as the nested dicts the JAX package uses, leaf
+for leaf (``groups/layer0/attn/wq``, ``groups/layer1/ffn/experts/wi_gate``,
+``groups/layer1/mamba/A_log``, ``encoder/layers/layer0/...``;
+``layers/layer0/k_pages``, a Mamba or xLSTM layer's state, ``enc_k``,
+``btab``, ``lens``), with numpy leaves; a bfloat16 leaf may be an
+``ml_dtypes`` bfloat16 array.
 The tests hand such trees to :func:`state_from_numpy`,
 :func:`params_from_numpy` and :func:`cache_from_numpy`, so that both
 packages compute from the same data.

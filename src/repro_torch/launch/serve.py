@@ -4,7 +4,10 @@ paged KV cache (port of ``repro.launch.serve``, same options and summary).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
         --requests 8 --max-new 16 [--device cpu]
 
-It runs on the CUDA card unless ``--device`` names another device.
+``--arch`` takes any of the ten arch ids (``configs.all_archs()``), at the
+published size or, with ``--reduced``, its small same-family config. It
+runs on the CUDA card unless ``--device`` names another device. Weights
+are random, from seed 0.
 """
 from __future__ import annotations
 

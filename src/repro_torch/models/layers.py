@@ -1,7 +1,7 @@
-"""Model layers of the dense family: rmsnorm, RoPE, GQA attention (prefill
-and paged decode), the swiglu MLP, tied embeddings (port of the parts of
-``repro.models.layers`` that qwen2-0.5b runs; ``transformer`` refuses
-configs that need the others).
+"""Shared model layers (port of ``repro.models.layers``): rmsnorm and
+LayerNorm, RoPE and M-RoPE, GQA attention (prefill, dense and paged decode),
+cross-attention against an encoder's K/V, the swiglu / geglu / gelu MLPs,
+tied or untied embeddings and learned positions.
 
 Params are nested dicts of tensors under the reference's key names. Numerics
 follow the reference: params in ``cfg.dtype``, norms and softmax in float32,
@@ -49,12 +49,21 @@ def _zeros(gen: torch.Generator, n: int, dtype) -> torch.Tensor:
 # norms
 # ---------------------------------------------------------------------------
 def init_norm(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    return {"scale": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=gen.device)}
+    p = {"scale": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=gen.device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = _zeros(gen, cfg.d_model, cfg.dtype)
+    return p
 
 
 def apply_norm(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """rmsnorm in float32."""
+    """rmsnorm or LayerNorm in float32, by the reference's formulas (the
+    mean of squared deviations, ``rsqrt(var + 1e-6)``)."""
     xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + 1e-6)
+        return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
     var = (xf ** 2).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + 1e-6) * p["scale"].float()).to(x.dtype)
 
@@ -62,28 +71,58 @@ def apply_norm(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
+def _freqs(hd: int, theta: float, device) -> torch.Tensor:
+    """theta ** (-i / (hd/2)) for i < hd/2, in float32."""
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def _rotate_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def _rope_angles(positions: torch.Tensor, hd: int, theta: float) -> tuple:
     """positions (..., S) -> cos/sin (..., S, hd/2) in float32."""
-    half = hd // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
-    ang = positions.float()[..., None] * freqs
+    ang = positions.float()[..., None] * _freqs(hd, theta, positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x (B, S, H, hd), positions (B, S). Rotate-half convention."""
     cos, sin = _rope_angles(positions, x.shape[-1], theta)  # (B, S, hd/2)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return _rotate_half(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: positions3 (3, B, S); head_dim/2 is split into
+    (t, h, w) sections, each rotated by its own position stream."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = _freqs(x.shape[-1], theta, x.device)
+    cos_parts, sin_parts = [], []
+    start = 0
+    for sec, pos in zip(sections, positions3):
+        ang = pos.float()[..., None] * freqs[start:start + sec]  # (B, S, sec)
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        start += sec
+    cos = torch.cat(cos_parts, -1)[:, :, None, :]  # (B, S, 1, half)
+    sin = torch.cat(sin_parts, -1)[:, :, None, :]
+    return _rotate_half(x, cos, sin)
 
 
 def rotate(cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """RoPE, or M-RoPE where the config has it; ``positions`` is (B, S), or
+    (3, B, S) for M-RoPE (a (B, S) tensor there gives three equal streams,
+    the text-only case)."""
     if cfg.mrope:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported to PyTorch yet (ROADMAP queue 1, item 15)")
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -114,6 +153,22 @@ def _proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> to
     if b is not None:
         out = out + b
     return out
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as float32, never rounded to a's dtype (the reference's
+    ``preferred_element_type=f32`` without the ``astype`` after it). bf16
+    operands on the card go to cuBLAS with a float32 output (the
+    ``out_dtype`` overloads; it sums in float32); elsewhere the float32
+    product of the upcast operands, whose products of bf16 values are
+    exact. ``a`` is (..., k) against ``b`` (k, n), or (E, m, k) against
+    (E, k, n)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        if b.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[1])
+    return torch.matmul(a.float(), b.float())
 
 
 def qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, rope=True):
@@ -169,6 +224,34 @@ def chunked_gqa_attention(
     return torch.cat(outs, dim=1)
 
 
+def attention_decode_dense(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    k_cache: torch.Tensor,  # (B, S_max, KVH, hd)
+    v_cache: torch.Tensor,
+    lens: torch.Tensor,  # int32 (B,) tokens already cached
+):
+    """One decode step against a dense contiguous KV cache, written in
+    place (a position past S_max drops the write, as the reference's
+    scatter does)."""
+    B, S_max = x.shape[0], k_cache.shape[1]
+    q, k_new, v_new = qkv(cfg, p, x, lens[:, None], rope=not cfg.encdec)
+    fits = lens < S_max
+    bidx = torch.arange(B, device=x.device)[fits]
+    at = lens[fits].long()
+    k_cache[bidx, at] = k_new[fits, 0]
+    v_cache[bidx, at] = v_new[fits, 0]
+    KVH, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    qh = q.reshape(B, KVH, G, cfg.hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qh.float(), k_cache.float()) * cfg.hd ** -0.5
+    mask = torch.arange(S_max, device=x.device)[None] <= lens[:, None]  # the new token too
+    s = torch.where(mask[:, None, None], s, float("-inf"))
+    o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), v_cache.float())
+    o = o.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    return _proj(o, p["wo"]), k_cache, v_cache
+
+
 def attention_decode_paged(
     cfg: ArchConfig,
     p: dict,
@@ -205,30 +288,82 @@ def attention_decode_paged(
     return _proj(o, p["wo"]), k_pages, v_pages
 
 
+def init_cross_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    return init_attention(cfg, gen)
+
+
+def cross_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V
+    (enc_k/v: (B, F, KVH, hd))."""
+    B, S, _ = x.shape
+    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.hd)
+    o = chunked_gqa_attention(q, enc_k, enc_v, causal=False)
+    return _proj(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+
+
+def encoder_kv(cfg: ArchConfig, p: dict, enc_out: torch.Tensor) -> tuple:
+    """Cross-attention K/V of the encoder output (B, F, d)."""
+    B, F_, _ = enc_out.shape
+    k = _proj(enc_out, p["wk"], p.get("bk")).reshape(B, F_, cfg.n_kv_heads, cfg.hd)
+    v = _proj(enc_out, p["wv"], p.get("bv")).reshape(B, F_, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def cross_attention_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_k: torch.Tensor,
+                           enc_v: torch.Tensor) -> torch.Tensor:
+    """Single-token cross-attention (decode): the same math at S = 1."""
+    return cross_attention(cfg, p, x, enc_k, enc_v)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def init_mlp(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
-    return {
-        "wi_gate": dense_init(gen, d, ff, cfg.dtype),
-        "wi_up": dense_init(gen, d, ff, cfg.dtype),
-        "wo": dense_init(gen, ff, d, cfg.dtype),
-    }
+def init_mlp(cfg: ArchConfig, gen: torch.Generator, d_ff: int | None = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.activation in ("swiglu", "geglu"):
+        return {
+            "wi_gate": dense_init(gen, d, ff, cfg.dtype),
+            "wi_up": dense_init(gen, d, ff, cfg.dtype),
+            "wo": dense_init(gen, ff, d, cfg.dtype),
+        }
+    return {"wi": dense_init(gen, d, ff, cfg.dtype),  # plain gelu (whisper)
+            "wo": dense_init(gen, ff, d, cfg.dtype)}
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """swiglu, the gate and the product in float32."""
-    h = F.silu(_proj(x, p["wi_gate"]).float()) * _proj(x, p["wi_up"]).float()
+    """swiglu, geglu or gelu; the activation and the gate product in
+    float32 on the projections rounded to x's dtype."""
+    if cfg.activation in ("swiglu", "geglu"):
+        act = F.silu if cfg.activation == "swiglu" else gelu
+        h = act(_proj(x, p["wi_gate"]).float()) * _proj(x, p["wi_up"]).float()
+    else:
+        h = gelu(_proj(x, p["wi"]).float())
     return _proj(h.to(x.dtype), p["wo"])
 
 
 # ---------------------------------------------------------------------------
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
+def _table(gen: torch.Generator, rows: int, cfg: ArchConfig) -> torch.Tensor:
+    return (_randn(gen, (rows, cfg.d_model)) * 0.02).to(cfg.dtype)
+
+
 def init_embedding(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    """The token table, tied to the unembedding."""
-    return {"tok": (_randn(gen, (cfg.vocab, cfg.d_model)) * 0.02).to(cfg.dtype)}
+    """The token table; the unembedding where it is not tied; the learned
+    positions of an encoder-decoder (``pos_dec``, ``pos_enc``)."""
+    p = {"tok": _table(gen, cfg.vocab, cfg)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab, cfg.dtype)
+    if cfg.encdec:
+        p["pos_dec"] = _table(gen, cfg.max_seq, cfg)
+        p["pos_enc"] = _table(gen, cfg.n_frames, cfg)
+    return p
 
 
 def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -236,11 +371,10 @@ def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    """float32 logits (the reference's ``preferred_element_type=f32``: bf16
-    products summed in float32, never rounded to bf16). The port upcasts h
-    and the (tied) table to float32 and multiplies in float32, without TF32.
-    For qwen2-0.5b's 151,936 x 896 table that is a float32 copy of 545 MB
-    per call: 272 MB read and 545 MB written, then read again by the
-    product, about 0.4 ms of HBM time at 3.35 TB/s. A bf16 product would
-    round the logits to bf16 first, where argmax ties become likely."""
-    return torch.matmul(h.float(), p["tok"].t().float())
+    """float32 logits through the tied table or the untied ``unembed`` (d,
+    vocab): the reference's ``preferred_element_type=f32``, bf16 products
+    summed in float32 and never rounded to bf16 (:func:`matmul_f32`). A
+    bf16 product would round the logits to bf16 first, where argmax ties
+    become likely."""
+    w = p["tok"].t() if cfg.tie_embeddings else p["unembed"]
+    return matmul_f32(h, w)

@@ -1,0 +1,114 @@
+"""Mixture-of-Experts FFN: top-k routing with capacity-based dispatch (port
+of ``repro.models.moe``).
+
+Dispatch is the scatter/gather formulation: each (token, choice) pair is
+written into an (E, C + 1, d) expert buffer at its position among the
+pairs routed to its expert, in token-major order; pairs at positions >= C
+are dropped into the spare row C, which is sliced away. Shared experts are
+always-on experts computed densely and added.
+
+The capacity, the padded experts' -inf logits, the token-major positions,
+the clamped gather that is zeroed where dropped and the float32 combine are
+the reference's, step for step. ``jax.lax.top_k`` breaks ties towards the
+lowest expert index; :func:`route` selects with a stable descending sort,
+which does the same (``torch.topk`` promises no order among ties). At
+decode T is the engine's ``max_seqs`` (idle slots included), so the
+capacity is often 1 and drops are the normal case.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+
+def pad_experts(cfg: ArchConfig) -> int:
+    """Expert-bank size after padding (qwen2-moe: 60 -> 64). Padded experts
+    get -inf router logits and are never selected."""
+    return cfg.e_pad
+
+
+def _bank(gen: torch.Generator, E: int, i: int, o: int, dtype) -> torch.Tensor:
+    """E independent ``dense_init`` matrices, filled one expert at a time so
+    that the float32 draw of a whole bank is never held at once."""
+    bank = torch.empty((E, i, o), dtype=dtype, device=gen.device)
+    for e in range(E):
+        bank[e] = L.dense_init(gen, i, o, dtype)
+    return bank
+
+
+def init_moe(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    d, ff, E = cfg.d_model, cfg.d_ff, pad_experts(cfg)
+    p = {
+        "router": L.dense_init(gen, d, E, torch.float32),
+        "experts": {
+            "wi_gate": _bank(gen, E, d, ff, cfg.dtype),
+            "wi_up": _bank(gen, E, d, ff, cfg.dtype),
+            "wo": _bank(gen, E, ff, d, cfg.dtype),
+        },
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = L.init_mlp(cfg, gen, d_ff=ff * cfg.n_shared_experts)
+    return p
+
+
+def capacity(cfg: ArchConfig, T: int) -> int:
+    """Slots per expert for T tokens, in Python floats as the reference
+    computes it; never more than T * top_k."""
+    k = cfg.top_k
+    return min(max(1, int(T * k / cfg.n_experts * cfg.capacity_factor)), T * k)
+
+
+def route(cfg: ArchConfig, p: dict, xt: torch.Tensor) -> tuple:
+    """xt (T, d) -> (float32 softmax weights (T, k), int64 experts (T, k)):
+    the top-k router logits, ties to the lowest expert, padded experts
+    never chosen."""
+    logits = torch.matmul(xt.float(), p["router"])  # (T, E) float32
+    E = logits.shape[-1]
+    if E > cfg.n_experts:
+        pad = torch.arange(E, device=xt.device) >= cfg.n_experts
+        logits = torch.where(pad, float("-inf"), logits)
+    vals, experts = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return torch.softmax(vals[:, :cfg.top_k], dim=-1), experts[:, :cfg.top_k]
+
+
+def dispatch_slots(cfg: ArchConfig, experts: torch.Tensor, cap: int) -> tuple:
+    """(T, k) experts -> (flat experts (T*k,), each pair's position in its
+    expert's buffer (T*k,), kept mask (T*k,)): positions count the earlier
+    pairs on the same expert in token-major order."""
+    flat_e = experts.reshape(-1)
+    onehot = F.one_hot(flat_e, cfg.e_pad).to(torch.int32)  # (T*k, E)
+    pos = ((torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot) * onehot).sum(-1)
+    return flat_e, pos, pos < cap
+
+
+def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d)."""
+    B, S, d = x.shape
+    E = p["experts"]["wi_gate"].shape[0]
+    T, k = B * S, cfg.top_k
+    xt = x.reshape(T, d)
+    weights, experts = route(cfg, p, xt)
+    cap = capacity(cfg, T)
+    flat_e, pos, keep = dispatch_slots(cfg, experts, cap)
+    safe_pos = torch.where(keep, pos, cap).long()  # the drop row
+
+    buf = torch.zeros((E, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[flat_e, safe_pos] = xt.repeat_interleave(k, dim=0)  # token-major, as flat_e
+    buf = buf[:, :cap]
+
+    # the expert FFN, batched over E: float32 products of the buffer's dtype
+    ex = p["experts"]
+    h = F.silu(L.matmul_f32(buf, ex["wi_gate"])) * L.matmul_f32(buf, ex["wi_up"])
+    out_buf = L.matmul_f32(h.to(buf.dtype), ex["wo"]).to(buf.dtype)  # (E, C, d)
+
+    gathered = out_buf[flat_e, safe_pos.clamp(max=cap - 1)]  # (T*k, d)
+    gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=gathered.dtype,
+                                                                device=x.device))
+    combined = (gathered.reshape(T, k, d).float() * weights[..., None]).sum(dim=1)
+    out = combined.to(x.dtype)
+    if "shared" in p:
+        out = out + L.apply_mlp(cfg, p["shared"], xt)
+    return out.reshape(B, S, d)

@@ -1,6 +1,7 @@
 """Model registry: ``build(config)`` -> a :class:`Model` handle with init /
-prefill / decode / init_cache (port of ``repro.models.registry``; the
-dry-run input specs and the training loss are not ported).
+prefill / decode / init_cache for every arch (port of
+``repro.models.registry``; the dry-run input specs and the training loss
+are not ported).
 
 Building a model pins the matmul numerics (``layers.matmul_numerics``:
 no TF32, float32 reductions of bf16 products).
@@ -23,6 +24,7 @@ from repro_torch.models import transformer as T
 class Model:
     cfg: ArchConfig
     init: Callable  # (seed=0, device=None) -> params
+    loss_fn: Callable  # (params, batch) -> raises: training is not ported
     prefill: Callable  # (params, batch, max_seq=None, n_pool=None) -> (logits, cache)
     decode: Callable  # (params, cache, tokens, kernel_backend="auto") -> (logits, cache)
     init_cache: Callable  # (batch, max_seq, n_pool=None, device=None) -> cache
@@ -42,6 +44,7 @@ def build(cfg: ArchConfig | str) -> Model:
     return Model(
         cfg=cfg,
         init=lambda seed=0, device=None: _init(cfg, seed, device),
+        loss_fn=lambda params, batch: T.loss_fn(cfg, params, batch),
         prefill=lambda params, batch, max_seq=None, n_pool=None:
             T.prefill(cfg, params, batch, max_seq, n_pool),
         decode=lambda params, cache, tokens, kernel_backend="auto":

@@ -14,7 +14,9 @@ The paper's full loop against a real model:
     block table rewritten), so generation must not change.
 
 The near/far split is bookkeeping (metrics). The attention-mass probe uses
-layer 0's projections.
+the first attention layer's projections; a model without attention layers
+(xLSTM) records no mass. Every family runs: M-RoPE models prefill with three
+equal position streams, an encoder-decoder with zero stub frames.
 
 :class:`TieringService` is the churn engine's serving front: tenants
 admitted onto the guest lanes of an engine fleet through the pressure-aware
@@ -137,6 +139,8 @@ class Engine:
         src = self._t(old_btab[b_idx, s_idx], torch.long)
         dst = self._t(new_btab[b_idx, s_idx], torch.long)
         for lc in self.cache["layers"].values():
+            if "k_pages" not in lc:  # a Mamba or xLSTM layer: no pages
+                continue
             for key in ("k_pages", "v_pages"):
                 arr = lc[key]  # (G, B, KVH, n_pool, page, hd)
                 # advanced indices around a slice go first:
@@ -165,12 +169,15 @@ class Engine:
         self._sync_btab()
 
     # ------------------------------------------------------------------
-    # telemetry: per-page attention mass (layer-0 probe)
+    # telemetry: per-page attention mass (first attention layer probe)
     # ------------------------------------------------------------------
     def _attention_mass(self, tokens: torch.Tensor) -> np.ndarray:
-        """float32 (B, pps): each logical page's share of layer 0's
-        attention for the next token, averaged over heads."""
+        """float32 (B, pps): each logical page's share of the first
+        attention layer's attention for the next token, averaged over heads;
+        zeros where the model has no attention layer (xLSTM)."""
         cfg = self.model.cfg
+        if not cfg.attn_layers:
+            return np.zeros((self.ecfg.max_seqs, self.n_pool))
         j = cfg.attn_layers[0] % cfg.group_size
         lp = _layer0(self.params["groups"])[f"layer{j}"]
         k = self.cache["layers"][f"layer{j}"]["k_pages"][0]  # (B, KVH, n_pool, page, hd)
@@ -234,13 +241,25 @@ class Engine:
     def _prefill_into_slot(self, req: Request):
         self._reset_slot_placement(req.seq_slot)
         toks = torch.tensor(req.prompt, dtype=torch.int32, device=self.device)[None]
+        batch = {"tokens": toks}
+        cfg = self.model.cfg
+        if cfg.mrope:  # text only: three equal position streams
+            S = toks.shape[1]
+            batch["positions"] = torch.arange(S, dtype=torch.int32,
+                                              device=self.device).expand(3, 1, S)
+        if cfg.encdec:  # the stub audio frontend: zero frames
+            batch["frames"] = torch.zeros((1, cfg.n_frames, cfg.d_model), dtype=cfg.dtype,
+                                          device=self.device)
         logits, rcache = self.model.prefill(
-            self.params, {"tokens": toks}, max_seq=self.ecfg.max_seq_len,
-            n_pool=self.n_phys)
+            self.params, batch, max_seq=self.ecfg.max_seq_len, n_pool=self.n_phys)
         b = req.seq_slot
         for name, lc in self.cache["layers"].items():
             for key, dst in lc.items():
-                dst[:, b] = rcache["layers"][name][key][:, 0]
+                if dst.dim() >= 2 and dst.shape[1] == self.ecfg.max_seqs:
+                    dst[:, b] = rcache["layers"][name][key][:, 0]
+        if cfg.encdec:
+            for key in ("enc_k", "enc_v"):
+                self.cache[key][:, b] = rcache[key][:, 0]
         self.cache["lens"][b] = len(req.prompt)
         req.out.append(int(torch.argmax(logits[0])))
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import engine, faults, tiering  # noqa: E402

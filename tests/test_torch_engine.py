@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 import jax  # noqa: E402
 from repro.core import address_space as jasp  # noqa: E402

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 import test_host_partition_edges as edges  # noqa: E402
 import torch_sharding_cases as C  # noqa: E402

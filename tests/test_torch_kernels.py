@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from repro_torch.kernels import registry  # noqa: E402
 

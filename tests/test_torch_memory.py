@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 import jax.numpy as jnp  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402

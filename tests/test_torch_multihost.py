@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 import torch_sharding_cases as C  # noqa: E402
 from test_torch_sharding import assert_same, jax_tree, ranked_results  # noqa: E402

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from repro_torch.core import engine  # noqa: E402
 
@@ -51,7 +52,7 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "serve_ab.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imported_modules(f):

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 import torch_sharding_cases as C  # noqa: E402
 from repro_torch.core import sharding  # noqa: E402
