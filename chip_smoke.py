@@ -147,8 +147,25 @@ first use), then, printing one JSON line per phase:
    float32 too, where the kernel's plan drops to 4 warps). The line gives
    the cache's bytes in three parts: paged K/V, the Mamba / xLSTM layers'
    recurrent states, and the encoder's K/V (whisper).
+19. train -- the training path (which reaches none of the port's kernels,
+   as the reference's reaches no Pallas kernel: every count must stay 0),
+   on the port's seeded token pipeline at launch/train.py's defaults
+   (batch 8 x 256 tokens, lr 3e-4, warmup then cosine over the run),
+   seeded random bf16 weights, remat "block": qwen2-0.5b at full size with
+   AdamW, and qwen2-moe-a2.7b at full width with Adafactor, 2 micro-batches
+   and int8 gradient compression, cut to the largest depth whose state fits
+   TRAIN_BUDGET_GB (the cut is on its line). Each takes 10 steps (2
+   untimed, 8 timed: s/step, tokens/s, peak GB, every loss and gradient
+   norm), a Supervisor checkpoint after step 5 restored to the host and
+   held bit for bit to the live tensors, 2 more steps under torch.profiler
+   (device busy ms, idle share, top operations); then the restored state
+   goes back on the card and ``train_loop`` continues it to step 10: its
+   losses within CONTINUED_LOSS_RTOL of the uninterrupted run's. Losses and
+   norms must be finite and the tenth loss below the first. Last, one
+   float32 loss-and-gradient step of both models reduced, on the card
+   against the CPU, within CARD_CPU_*_RTOL.
 
-The phases run in the order 1-5, 11, 12, 6, 7, 13-17, 8-10, 18. An engine
+The phases run in the order 1-5, 11, 12, 6, 7, 13-17, 8-10, 18, 19. An engine
 kernel row's ``launches`` counts the engine's main path (the memtierd run);
 ``launches_by_path`` adds the churn, reference, engine_synth, churn_synth,
 service, pebs, ntier (the first policy's kernel run, hybridtier),
@@ -180,7 +197,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import address_space as asp  # noqa: E402
 from repro_torch.core import engine, faults, filter as pfilter, sharding, telemetry, tiers  # noqa: E402
-from repro_torch.data import prng, traces  # noqa: E402
+from repro_torch.data import pipeline, prng, traces  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.consolidate import consolidate_region, scatter_region  # noqa: E402
 from repro_torch.kernels.flash_attention import gqa_attention  # noqa: E402
@@ -190,6 +207,8 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve.scheduler import Request, SchedulerConfig  # noqa: E402
+from repro_torch.train import checkpoint, fault, optimizer, trainer  # noqa: E402
+from repro_torch.train import tree as tr  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA cores (the table's non-tensor rate)
@@ -2231,6 +2250,218 @@ def families_phase(device, gen: torch.Generator) -> tuple[list, list]:
     return lines, rows
 
 
+# --------------------------------------------------------------------------
+# 19. train: the training path on the card
+# --------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 256, 3e-4  # launch/train.py's defaults
+TRAIN_STEPS, TRAIN_UNTIMED, TRAIN_SAVE_AT, TRAIN_PROFILED = 10, 2, 5, 2
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
+# the MoE's depth: the largest whose state fits TRAIN_BUDGET_GB at these
+# bytes a param (bf16 params and grads, the float32 micro-batch accumulator
+# and error state; Adafactor's factored state is under 0.1% of it)
+TRAIN_BUDGET_GB, MOE_BYTES_PER_PARAM = 60, 2 + 2 + 4 + 4
+# the run continued from the middle checkpoint against the uninterrupted one:
+# the card's backward sums the embedding's and the MoE combine's gradients
+# with atomics, so the order of float additions may differ between runs
+CONTINUED_LOSS_RTOL = 1e-3
+# one reduced step on the card against the CPU, float32 (TF32 off): the
+# loss, and each gradient leaf against its largest entry (the CPU tests' tolerances)
+CARD_CPU_LOSS_RTOL, CARD_CPU_GRAD_RTOL = 1e-5, 1e-4
+
+
+def moe_train_depth(arch: str) -> tuple[int, str]:
+    """(depth, the cut as printed) for ``arch`` in TRAIN_BUDGET_GB."""
+    cfg = configs.get(arch)
+    one, two = (cfg.replace(n_layers=n).param_count() for n in (1, 2))
+    per_layer, base = two - one, 2 * one - two
+    depth = int((TRAIN_BUDGET_GB * 1e9 / MOE_BYTES_PER_PARAM - base) // per_layer)
+    return depth, (f"depth {depth} of {cfg.n_layers}: {base / 1e9:.3f} B params of embeddings "
+                   f"+ {per_layer / 1e9:.3f} B a layer, at {MOE_BYTES_PER_PARAM} bytes a param "
+                   f"(bf16 params and grads, float32 accumulator and error state), in "
+                   f"{TRAIN_BUDGET_GB} GB")
+
+
+def train_tree(params, state, data_step: int) -> dict:
+    return {"params": params, "train_state": state, "data_step": torch.tensor(data_step)}
+
+
+def train_phase(arch: str, cut: str | None, tcfg, device) -> dict:
+    """``arch`` trained on the port's pipeline (batch 8 x 256, seed 0) for
+    TRAIN_STEPS steps: TRAIN_UNTIMED untimed, then timed, a Supervisor
+    checkpoint after step TRAIN_SAVE_AT restored (to the host) and held bit
+    for bit to the live tensors, TRAIN_PROFILED more steps profiled; then
+    the restored state continued by ``train_loop`` to TRAIN_STEPS, its
+    losses held to the uninterrupted run's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get(arch)
+    if cut is not None:
+        cfg = cfg.replace(n_layers=int(cut.split()[1]))
+    model = model_registry.build(cfg)
+    spec = pipeline.DataSpec(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    ckpt_dir = TRAIN_DIR / cfg.name
+    if ckpt_dir.exists():
+        import shutil
+        shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # left by earlier phases
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=device)
+    state = trainer.init_train_state(tcfg, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = trainer.make_train_step(model, tcfg)
+    sup = fault.Supervisor(str(ckpt_dir), save_every=TRAIN_SAVE_AT, keep=1)
+    data = pipeline.DataState()
+    losses, norms, step_s, restored, ckpt = [], [], [], None, {}
+    registry.reset_launch_counts()
+
+    def one_step():
+        nonlocal params, state, data
+        batch, data = pipeline.next_batch(spec, data)
+        batch = trainer.batch_to(batch, device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, mets = step_fn(params, state, batch)
+        losses.append(float(mets["loss"]))  # syncs
+        norms.append(float(mets["grad_norm"]))
+        return time.perf_counter() - t
+
+    for step in range(1, TRAIN_STEPS + 1):
+        dt = one_step()
+        if step > TRAIN_UNTIMED:
+            step_s.append(dt)
+        if step == TRAIN_SAVE_AT:
+            t = time.perf_counter()
+            thread = sup.maybe_save(step, train_tree(params, state, data.step))
+            ckpt["save_host_copy_s"] = time.perf_counter() - t
+            thread.join()
+            ckpt["save_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            restored, man = checkpoint.restore(str(ckpt_dir), train_tree(params, state, 0),
+                                               device="cpu")
+            ckpt["restore_s"] = time.perf_counter() - t
+            live = dict(tr.items(train_tree(params, state, data.step)))
+            got = dict(tr.items(restored))
+            assert man["step"] == step and set(live) == set(got)
+            bad = [k for k, v in live.items() if not same_bits(v.detach().cpu(), got[k])]
+            if bad:
+                raise AssertionError(f"{arch}: restored leaves differ from the saved: {bad[:5]}")
+            ckpt.update(leaves=len(live), bytes=sum(_nbytes(v) for v in got.values()),
+                        restored_bit_exact=True)
+            del live, got  # the live dict holds the state's tensors
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(TRAIN_PROFILED):
+            one_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    prof_line = dict(steps=TRAIN_PROFILED, wall_s_per_step_profiled=wall / TRAIN_PROFILED,
+                     **device_summary(prof, ("port_none",), TRAIN_PROFILED, "step"))
+    del prof
+    launches = registry.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in tr.leaves(params))
+    state_gb = sum(_nbytes(v) for v in tr.leaves(state)) / 1e9
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the restart: the restored host copy on the card, continued by train_loop
+    t = time.perf_counter()
+    params = tr.map(lambda v: v.to(device), restored["params"])
+    state = tr.map(lambda v: v.to(device), restored["train_state"])
+    del restored
+    _, _, _, hist = trainer.train_loop(model, tcfg, spec, steps=TRAIN_STEPS, params=params,
+                                       train_state=state,
+                                       data_state=pipeline.DataState(step=TRAIN_SAVE_AT))
+    ckpt["continued_s"] = time.perf_counter() - t
+    ckpt["continued_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    cont = [h["loss"] for h in hist]
+    want = losses[TRAIN_SAVE_AT:TRAIN_STEPS]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(cont, want))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"{arch}: a loss or gradient norm is not finite: {losses} {norms}")
+    if not losses[TRAIN_STEPS - 1] < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+    if len(cont) != len(want) or not diff <= CONTINUED_LOSS_RTOL:
+        raise AssertionError(f"{arch}: the continued run's losses {cont} differ from {want}")
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: training launched the port's kernels: {launches}")
+    med = statistics.median(step_s)
+    return dict(
+        phase="train", arch=cfg.name, cut=cut, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, params=n_params, dtype=str(cfg.dtype), remat=cfg.remat,
+        optimizer=tcfg.opt.name, lr=tcfg.opt.lr, micro_batches=tcfg.micro_batches,
+        compress_grads=tcfg.compress_grads, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        init_s=init_s, held_by_earlier_phases_gb=held_gb, steps=TRAIN_STEPS, timed_steps=len(step_s), s_per_step=med,
+        s_per_step_all=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med, peak_gb=peak_gb,
+        train_state_gb=state_gb, losses=losses, grad_norms=norms, profile=prof_line,
+        checkpoint=dict(at_step=TRAIN_SAVE_AT, **ckpt), continued_losses=cont,
+        continued_max_rel_diff=diff, continued_rtol=CONTINUED_LOSS_RTOL,
+        continued_bit_identical=cont == want, kernel_launches=launches)
+
+
+def card_vs_cpu_phase(device) -> dict:
+    """One loss-and-gradient step of reduced qwen2-0.5b and reduced
+    qwen2-moe in float32 on the card and on the CPU, from the same params
+    and batch."""
+    out = {}
+    for arch in ("qwen2-0.5b", "qwen2-moe-a2.7b"):
+        cfg = configs.reduced(arch).replace(dtype=torch.float32)
+        model = model_registry.build(cfg)
+        params = model.init(seed=1, device="cpu")
+        spec = pipeline.DataSpec(vocab=cfg.vocab, seq_len=64, global_batch=4)
+        batch, _ = pipeline.next_batch(spec, pipeline.DataState())
+        cpu = trainer._grads(model, params, trainer.batch_to(batch, "cpu"))
+        card = trainer._grads(model, tr.map(lambda v: v.to(device), params),
+                              trainer.batch_to(batch, device))
+        loss_diff = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+        worst = 0.0
+        for (k, g), (_, w) in zip(tr.items(card[2]), tr.items(cpu[2])):
+            scale = float(w.abs().max())
+            err = float((g.cpu() - w).abs().max())
+            if err > CARD_CPU_GRAD_RTOL * scale + 1e-12:
+                raise AssertionError(f"{arch} {k}: card and CPU gradients differ by {err} "
+                                     f"(largest {scale})")
+            worst = max(worst, err / scale if scale else 0.0)
+        if not loss_diff <= CARD_CPU_LOSS_RTOL:
+            raise AssertionError(f"{arch}: card loss {float(card[0])} against CPU {float(cpu[0])}")
+        out[cfg.name] = dict(loss_card=float(card[0]), loss_cpu=float(cpu[0]),
+                             loss_rel_diff=loss_diff, grad_max_rel_diff=worst,
+                             leaves=len(tr.leaves(cpu[2])))
+    return dict(phase="train_card_vs_cpu", dtype="float32", loss_rtol=CARD_CPU_LOSS_RTOL,
+                grad_rtol=CARD_CPU_GRAD_RTOL, **out)
+
+
+def train_phases(device) -> list:
+    """qwen2-0.5b at full size with AdamW; qwen2-moe-a2.7b at full width
+    with Adafactor, 2 micro-batches and compression, cut in depth to
+    TRAIN_BUDGET_GB; both models one reduced float32 step card against
+    CPU."""
+    opt = dict(lr=TRAIN_LR, warmup_steps=min(100, TRAIN_STEPS // 10), total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    lines = [train_phase("qwen2-0.5b", None,
+                         trainer.TrainConfig(opt=optimizer.OptConfig(**opt)), device)]
+    emit(lines[-1])
+    depth, cut = moe_train_depth("qwen2-moe-a2.7b")
+    moe = trainer.TrainConfig(micro_batches=2, compress_grads=True,
+                              opt=optimizer.OptConfig(name="adafactor", **opt))
+    lines.append(train_phase("qwen2-moe-a2.7b", f"depth {depth}", moe, device))
+    lines[-1]["cut"] = cut
+    emit(lines[-1])
+    lines.append(card_vs_cpu_phase(device))
+    lines[-1]["train_phases_s"] = time.perf_counter() - t0
+    emit(lines[-1])
+    return lines
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device, _ = device_phase()
@@ -2338,6 +2569,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     _, family_rows = families_phase(device, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phases(device)
     rows = kernel_rows + serve_rows + registry_rows + family_rows
     # the launch floor: this run's time of K2 on the serve path's 1,632 bytes
     floor = next(r["ms"] for r in serve_rows if r["name"] == "hot_count")

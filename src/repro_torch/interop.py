@@ -10,9 +10,13 @@ for leaf (``groups/layer0/attn/wq``, ``groups/layer1/ffn/experts/wi_gate``,
 ``layers/layer0/k_pages``, a Mamba or xLSTM layer's state, ``enc_k``,
 ``btab``, ``lens``), with numpy leaves; a bfloat16 leaf may be an
 ``ml_dtypes`` bfloat16 array.
+A train state (``{"opt": {"m", "v", "step"} or {"f": per-leaf {"vr",
+"vc"} or {"v"}, "step"}, "err": ...}``) travels the same way, its moment
+and error trees under the params' path keys.
 The tests hand such trees to :func:`state_from_numpy`,
-:func:`params_from_numpy` and :func:`cache_from_numpy`, so that both
-packages compute from the same data.
+:func:`params_from_numpy`, :func:`cache_from_numpy` and
+:func:`train_state_from_numpy`, so that both packages compute from the
+same data.
 """
 from __future__ import annotations
 
@@ -92,3 +96,13 @@ def cache_to_numpy(cache: dict) -> dict:
         return {k: cache_to_numpy(v) for k, v in cache.items()}
     t = cache.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def train_state_from_numpy(tree: dict, device=None) -> dict:
+    """A trainer's state (optimizer moments or factors and step, the
+    compression's error state) on ``device`` (CUDA unless named), copied
+    from a nested dict of numpy arrays."""
+    return _to_torch(tree, runtime.resolve_device(device))
+
+
+train_state_to_numpy = cache_to_numpy

@@ -1,7 +1,7 @@
 """Shared model layers (port of ``repro.models.layers``): rmsnorm and
-LayerNorm, RoPE and M-RoPE, GQA attention (prefill, dense and paged decode),
-cross-attention against an encoder's K/V, the swiglu / geglu / gelu MLPs,
-tied or untied embeddings and learned positions.
+LayerNorm, RoPE and M-RoPE, GQA attention (training and prefill, dense and
+paged decode), cross-attention against an encoder's K/V, the swiglu /
+geglu / gelu MLPs, tied or untied embeddings and learned positions.
 
 Params are nested dicts of tensors under the reference's key names. Numerics
 follow the reference: params in ``cfg.dtype``, norms and softmax in float32,
@@ -165,10 +165,36 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (E, k, n)."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         if b.dim() == 3:
-            return torch.bmm(a, b, out_dtype=torch.float32)
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+            return _MatmulF32.apply(a, b)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[1])
     return torch.matmul(a.float(), b.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 (m, k) @ (k, n), or batched (E, m, k) @ (E, k, n), as float32
+    through cuBLAS's ``out_dtype`` overloads, with the backward of the
+    reference's ``dot_general`` transpose: each cotangent is the float32
+    product of the float32 output cotangent and the other operand, upcast,
+    rounded once to bf16 (so the backward does not depend on whether, and
+    how, a torch build differentiates the overloads)."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        mm = torch.bmm if b.dim() == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple:
+        a, b = ctx.saved_tensors
+        g = g.float()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
 
 
 def qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, rope=True):
@@ -222,6 +248,15 @@ def chunked_gqa_attention(
         o = o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, hd).to(q.dtype)
         outs.append(o[:, :n])
     return torch.cat(outs, dim=1)
+
+
+def attention_train(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (training and prefill): (B, S, d)."""
+    B, S = x.shape[:2]
+    q, k, v = qkv(cfg, p, x, positions)
+    o = chunked_gqa_attention(q, k, v, causal=causal)
+    return _proj(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
 
 
 def attention_decode_dense(

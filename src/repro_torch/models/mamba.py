@@ -10,7 +10,8 @@ last chunk is cut to the sequence's end instead of padded with identity
 steps (dA = 1, dBx = 0), which leave the state exactly as it is; so the
 state handed to decode is the state after the last real token.
 
-Decode carries (ssm state h, conv tail): constant-size state.
+Decode carries (ssm state h, conv tail): constant-size state. Training
+(:func:`mamba_train`) runs the same forward under autograd.
 """
 from __future__ import annotations
 
@@ -94,6 +95,11 @@ def _mamba_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, h0, tail0,
     y = torch.cat(ys, dim=1) + p["D"] * xc.float()
     y = y * F.silu(z.float())
     return L._proj(y.to(x.dtype), p["out_proj"]), (h, tail)
+
+
+def mamba_train(cfg: ArchConfig, p: dict, x: torch.Tensor, chunk: int = 16) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d): the whole sequence, no state kept."""
+    return _mamba_forward(cfg, p, x, None, None, chunk=chunk)[0]
 
 
 def init_mamba_cache(cfg: ArchConfig, batch: int, device) -> dict:

@@ -5,7 +5,8 @@ Dispatch is the scatter/gather formulation: each (token, choice) pair is
 written into an (E, C + 1, d) expert buffer at its position among the
 pairs routed to its expert, in token-major order; pairs at positions >= C
 are dropped into the spare row C, which is sliced away. Shared experts are
-always-on experts computed densely and added.
+always-on experts computed densely and added. :func:`aux_loss` is
+training's load-balance loss.
 
 The capacity, the padded experts' -inf logits, the token-major positions,
 the clamped gather that is zeroed where dropped and the float32 combine are
@@ -112,3 +113,17 @@ def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if "shared" in p:
         out = out + L.apply_mlp(cfg, p["shared"], xt)
     return out.reshape(B, S, d)
+
+
+def aux_loss(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Load-balance auxiliary loss (Switch): E * sum(f_e * p_e), float32.
+    The gradient flows through the mean router probability p_e only; the
+    top-1 counts f_e (``argmax``, ties to the lowest expert) carry none."""
+    logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(), p["router"])
+    E = logits.shape[-1]
+    if E > cfg.n_experts:
+        logits = torch.where(torch.arange(E, device=x.device) >= cfg.n_experts,
+                             float("-inf"), logits)
+    probs = torch.softmax(logits, dim=-1)
+    f = F.one_hot(torch.argmax(logits, dim=-1), E).float().mean(0)
+    return cfg.n_experts * torch.sum(f * probs.mean(0))

@@ -1,7 +1,6 @@
 """Model registry: ``build(config)`` -> a :class:`Model` handle with init /
-prefill / decode / init_cache for every arch (port of
-``repro.models.registry``; the dry-run input specs and the training loss
-are not ported).
+loss / prefill / decode / init_cache for every arch, and the shape-and-dtype
+records of every input of a shape cell (port of ``repro.models.registry``).
 
 Building a model pins the matmul numerics (``layers.matmul_numerics``:
 no TF32, float32 reductions of bf16 products).
@@ -14,7 +13,7 @@ from typing import Callable
 import torch
 
 from repro_torch import configs as config_lib
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPE_SPECS, ArchConfig
 from repro_torch.kernels import runtime
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -24,7 +23,7 @@ from repro_torch.models import transformer as T
 class Model:
     cfg: ArchConfig
     init: Callable  # (seed=0, device=None) -> params
-    loss_fn: Callable  # (params, batch) -> raises: training is not ported
+    loss_fn: Callable  # (params, batch) -> (loss, {"ce", "aux"})
     prefill: Callable  # (params, batch, max_seq=None, n_pool=None) -> (logits, cache)
     decode: Callable  # (params, cache, tokens, kernel_backend="auto") -> (logits, cache)
     init_cache: Callable  # (batch, max_seq, n_pool=None, device=None) -> cache
@@ -52,3 +51,50 @@ def build(cfg: ArchConfig | str) -> Model:
         init_cache=lambda batch, max_seq, n_pool=None, device=None:
             T.init_cache(cfg, batch, max_seq, n_pool, device),
     )
+
+
+# ---------------------------------------------------------------------------
+# input specs: shapes and dtypes only, nothing allocated
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """A tensor's shape and dtype (the reference's ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def batch_specs(cfg: ArchConfig, B: int, S: int) -> dict:
+    """The training / prefill batch: tokens, labels, M-RoPE positions and
+    an encoder-decoder's frames where the config has them."""
+    batch = {"tokens": Spec((B, S), torch.int32), "labels": Spec((B, S), torch.int32)}
+    if cfg.mrope:
+        batch["positions"] = Spec((3, B, S), torch.int32)
+    if cfg.encdec:
+        batch["frames"] = Spec((B, cfg.n_frames, cfg.d_model), cfg.dtype)
+    return batch
+
+
+def _specs(tree: dict) -> dict:
+    return {k: _specs(v) if isinstance(v, dict) else Spec(tuple(v.shape), v.dtype)
+            for k, v in tree.items()}
+
+
+def cache_specs(cfg: ArchConfig, B: int, max_seq: int) -> dict:
+    """The decode cache's tree, as ``transformer.init_cache`` builds it
+    (on the ``meta`` device: no memory)."""
+    return _specs(T.init_cache(cfg, B, max_seq, device="meta"))
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
+    """Every input of the cell's step function: train -> the loss's batch;
+    prefill -> prefill's batch; decode -> the cache and one token a
+    sequence."""
+    spec = SHAPE_SPECS[shape_name]
+    B, S = spec["global_batch"], spec["seq_len"]
+    if spec["kind"] == "train":
+        return {"batch": batch_specs(cfg, B, S)}
+    if spec["kind"] == "prefill":
+        batch = batch_specs(cfg, B, S)
+        batch.pop("labels")
+        return {"batch": batch}
+    return {"cache": cache_specs(cfg, B, S), "tokens": Spec((B, 1), torch.int32)}

@@ -13,14 +13,19 @@ The public layouts are the reference's: params hold the layer stack under
 ``n_groups`` axis and the batch on axis 1. Where the reference scans the
 stack, the port loops over the groups.
 
-Modes: ``prefill`` (last-position logits and a decode cache) and ``decode``
-(one token through the paged cache). :func:`decode_step` writes the
-cache's tensors in place and returns the same cache dict with ``lens``
-advanced. Training (``forward_train``, the losses) is not ported.
+Modes: ``train`` (:func:`loss_fn`, differentiated by autograd), ``prefill``
+(last-position logits and a decode cache) and ``decode`` (one token through
+the paged cache). :func:`decode_step` writes the cache's tensors in place
+and returns the same cache dict with ``lens`` advanced. ``cfg.remat ==
+"block"`` recomputes each decoder group in the backward
+(``torch.utils.checkpoint``), and the cross-entropy recomputes each
+sequence chunk's logits, so that neither the activations of every layer
+nor the (B, S, vocab) logits are held for the backward.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import runtime
@@ -39,16 +44,6 @@ def _check(cfg: ArchConfig) -> None:
     if cfg.unroll or cfg.causal_skip:
         raise _not_ported("the unrolled attention path (cfg.unroll / causal_skip)",
                           "item 17: the dry-run tooling")
-
-
-def forward_train(cfg: ArchConfig, params: dict, batch: dict):
-    """Training's forward pass: not ported (the next slice)."""
-    raise _not_ported("training (forward_train)", "item 15b: the training slice")
-
-
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict):
-    """Training's loss: not ported (the next slice)."""
-    raise _not_ported("training (loss_fn)", "item 15b: the training slice")
 
 
 # ===========================================================================
@@ -152,15 +147,18 @@ def _embed_tokens(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     return h
 
 
-def _apply_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, j: int) -> torch.Tensor:
-    """The FFN sub-block, dense or MoE (the reference's auxiliary loss is
-    training's and is not computed)."""
+def _apply_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, j: int, aux: bool = False):
+    """The FFN sub-block, dense or MoE: h, or with ``aux`` (training) the
+    pair (h, float32 load-balance loss; 0 for a dense layer)."""
+    zero = torch.zeros((), dtype=torch.float32, device=h.device) if aux else None
     if "ffn" not in lp:
-        return h
+        return (h, zero) if aux else h
     x = L.apply_norm(cfg, lp["norm2"], h)
     if cfg.layer_is_moe(j):
-        return h + MOE.apply_moe(cfg, lp["ffn"], x)
-    return h + L.apply_mlp(cfg, lp["ffn"], x)
+        out = h + MOE.apply_moe(cfg, lp["ffn"], x)
+        return (out, MOE.aux_loss(cfg, lp["ffn"], x)) if aux else out
+    out = h + L.apply_mlp(cfg, lp["ffn"], x)
+    return (out, zero) if aux else out
 
 
 def _attend(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -187,6 +185,107 @@ def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor
             h = h + _attend(ecfg, lp["attn"], x, pos, causal=False)[0]
             h = _apply_ffn(ecfg, lp, h, j)
     return L.apply_norm(cfg, params["encoder"]["final_norm"], h)
+
+
+# ===========================================================================
+# training
+# ===========================================================================
+AUX_WEIGHT = 0.01  # MoE load-balance loss weight
+TRAIN_MIXERS = {"mamba": M.mamba_train, "mlstm": X.mlstm_train, "slstm": X.slstm_train}
+
+
+def _apply_group_train(cfg: ArchConfig, gp: dict, h: torch.Tensor, positions: torch.Tensor,
+                       enc_out: torch.Tensor | None) -> tuple:
+    """One decoder group over the whole sequence: (h, the group's summed
+    auxiliary loss, float32)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(cfg.group_size):
+        lp, kind = gp[f"layer{j}"], cfg.layer_kind(j)
+        x = L.apply_norm(cfg, lp["norm1"], h)
+        if kind == "attn":
+            mix = _attend(cfg, lp["attn"], x, positions, causal=True)[0]
+        else:
+            mix = TRAIN_MIXERS[kind](cfg, lp[kind], x)
+        h = h + mix
+        if "xattn" in lp:
+            xh = L.apply_norm(cfg, lp["norm_x"], h)
+            h = h + L.cross_attention(cfg, lp["xattn"], xh,
+                                      *L.encoder_kv(cfg, lp["xattn"], enc_out))
+        h, aux = _apply_ffn(cfg, lp, h, j, aux=True)
+        aux_total = aux_total + aux
+    return h, aux_total
+
+
+def _unstack(tree: dict, n: int) -> list:
+    """A stacked tree as n per-group trees of views (``unbind``: the
+    backward stacks the n groups' gradients once)."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for g in range(n):
+            out[g][k] = parts[g]
+    return out
+
+
+def forward_train(cfg: ArchConfig, params: dict, batch: dict) -> tuple:
+    """-> (final-normed hidden (B, S, d), summed auxiliary loss). ``batch``:
+    ``tokens`` (B, S), and M-RoPE ``positions`` (3, B, S) or an
+    encoder-decoder's ``frames`` (B, F, d) where the config has them."""
+    _check(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    h = _embed_tokens(cfg, params, tokens)
+    enc_out = _encode(cfg, params, batch["frames"]) if cfg.encdec else None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for gp in _unstack(params["groups"], cfg.n_groups):
+        if remat:
+            h, a = checkpoint(_apply_group_train, cfg, gp, h, positions, enc_out,
+                              use_reentrant=False)
+        else:
+            h, a = _apply_group_train(cfg, gp, h, positions, enc_out)
+        aux = aux + a
+    return L.apply_norm(cfg, params["final_norm"], h), aux
+
+
+def _ce_chunk(cfg: ArchConfig, embed: dict, hb: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk (B, chunk, d) against its labels
+    (B, chunk); labels < 0 add nothing."""
+    logits = L.unembed(cfg, embed, hb)  # float32 (B, chunk, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = lb >= 0
+    tgt = torch.gather(logits, -1, lb.clamp(min=0).long()[..., None])[..., 0]
+    return torch.where(mask, logz - tgt, torch.zeros((), device=logits.device)).sum()
+
+
+def chunked_ce_loss(cfg: ArchConfig, params: dict, h: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over the labels >= 0, by sequence chunks: each
+    chunk's float32 logits (B, chunk, vocab) are made, summed and, under
+    autograd, recomputed in the backward rather than held."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):  # the reference pads the last chunk with masked labels
+        hb, lb = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_ce_chunk, cfg, params["embed"], hb, lb,
+                                       use_reentrant=False)
+        else:
+            total = total + _ce_chunk(cfg, params["embed"], hb, lb)
+    count = (labels >= 0).sum()
+    return total / torch.clamp(count, min=1)
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> tuple:
+    """(ce + AUX_WEIGHT * aux, {"ce", "aux"}), float32 scalars; ``batch``
+    as :func:`forward_train`'s plus ``labels`` (B, S)."""
+    h, aux = forward_train(cfg, params, batch)
+    ce = chunked_ce_loss(cfg, params, h, batch["labels"])
+    return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
 # ===========================================================================

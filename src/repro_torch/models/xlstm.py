@@ -3,8 +3,8 @@ of 8 blocks) and sLSTM (scalar memory, every 8th block), with exponential
 gating and the max-stabiliser.
 
 Both carry constant-size decode state and no KV cache. As in the
-reference, prefill and decode run the recurrence one time step after
-another (a loop here where the reference scans).
+reference, training, prefill and decode run the recurrence one time step
+after another (a loop here where the reference scans).
 """
 from __future__ import annotations
 
@@ -13,6 +13,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+
+
+# the floor of the normalisers, as ``jnp.maximum(x, 1.0)``: where x is
+# exactly 1 (sLSTM's n after its first step) the gradient splits in half
+# between the two, as JAX's does; ``clamp`` would pass all of it to x
+_ONE = torch.tensor(1.0)
 
 
 def _di(cfg: ArchConfig) -> int:
@@ -61,7 +67,7 @@ def _mlstm_step(q, k, v, i_log, f_log, state: dict) -> tuple:
     C = f_g[..., None, None] * C + i_g[..., None, None] * kv
     n = f_g[..., None] * n + i_g[..., None] * k
     num = torch.einsum("bhde,bhd->bhe", C, q)
-    den = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", n, q)), min=1.0)
+    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, q)), _ONE)
     return num / den[..., None], {"C": C, "n": n, "m": m_new}
 
 
@@ -93,6 +99,10 @@ def _mlstm_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, state: dict) -> tu
         hs.append(h)
     y = torch.stack(hs, dim=1).reshape(B, S, -1) * F.silu(z.float())
     return L._proj(y.to(x.dtype), p["down_proj"]), state
+
+
+def mlstm_train(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return _mlstm_forward(cfg, p, x, init_mlstm_cache(cfg, x.shape[0], x.device))[0]
 
 
 def mlstm_prefill(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
@@ -146,7 +156,7 @@ def _slstm_step(gx: torch.Tensor, state: dict, r: torch.Tensor) -> dict:
     f_g = torch.exp(f_log + m - m_new)
     c = f_g * c + i_g * torch.tanh(gz)
     n = f_g * n + i_g
-    h = torch.sigmoid(go) * c / torch.clamp(n, min=1.0)
+    h = torch.sigmoid(go) * c / torch.maximum(n, _ONE)
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
@@ -164,6 +174,10 @@ def _slstm_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, state: dict) -> tu
         hs.append(state["h"])
     y = torch.stack(hs, dim=1) * F.silu(z.float())
     return L._proj(y.to(x.dtype), p["down_proj"]), state
+
+
+def slstm_train(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return _slstm_forward(cfg, p, x, init_slstm_cache(cfg, x.shape[0], x.device))[0]
 
 
 def slstm_prefill(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:

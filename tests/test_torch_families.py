@@ -126,11 +126,13 @@ def test_mrope_with_distinct_streams_matches_reference():
     pos3 = np.stack([r.permutation(40)[:10].reshape(2, 5) for _ in range(3)]).astype(np.int32)
     assert not (pos3[0] == pos3[1]).all() and not (pos3[1] == pos3[2]).all()
     close(L.apply_mrope(t(x), t(pos3), cfg.rope_theta, cfg.mrope_sections).numpy(),
-          JL.apply_mrope(jnp.asarray(x), jnp.asarray(pos3), jcfg.rope_theta,
-                         jcfg.mrope_sections), ATOL_LAYER, "mrope")
+          jax.jit(JL.apply_mrope, static_argnums=(2, 3))(
+              jnp.asarray(x), jnp.asarray(pos3), jcfg.rope_theta, jcfg.mrope_sections),
+          ATOL_LAYER, "mrope")
     # (B, S) positions: three equal streams, on both sides
     close(L.rotate(cfg, t(x), t(pos3[1])).numpy(),
-          JL.rotate(jcfg, jnp.asarray(x), jnp.asarray(pos3[1])), ATOL_LAYER, "text-only")
+          jax.jit(JL.rotate, static_argnums=0)(jcfg, jnp.asarray(x), jnp.asarray(pos3[1])),
+          ATOL_LAYER, "text-only")
 
 
 def test_layernorm_geglu_gelu_and_learned_positions_match_reference():
@@ -143,13 +145,16 @@ def test_layernorm_geglu_gelu_and_learned_positions_match_reference():
         x = r.standard_normal((2, 3, cfg.d_model)).astype(np.float32) * 3 + 1
         # a norm with a non-trivial scale and bias
         norm = {k: t(r.standard_normal(v.shape).astype(np.float32)) for k, v in lp["norm1"].items()}
+        # the reference's layers jitted (one compile each; eager compiles every op)
+        norm_fn, mlp_fn, unembed_fn = (jax.jit(f, static_argnums=0) for f in (
+            JL.apply_norm, JL.apply_mlp, JL.unembed))
         close(L.apply_norm(cfg, norm, t(x)).numpy(),
-              JL.apply_norm(jcfg, {k: jnp.asarray(v.numpy()) for k, v in norm.items()},
-                            jnp.asarray(x)), ATOL_LAYER, f"{arch} norm")
+              norm_fn(jcfg, {k: jnp.asarray(v.numpy()) for k, v in norm.items()},
+                      jnp.asarray(x)), ATOL_LAYER, f"{arch} norm")
         close(L.apply_mlp(cfg, lp["ffn"], t(x)).numpy(),
-              JL.apply_mlp(jcfg, jlp["ffn"], jnp.asarray(x)), ATOL_LAYER, f"{arch} mlp")
+              mlp_fn(jcfg, jlp["ffn"], jnp.asarray(x)), ATOL_LAYER, f"{arch} mlp")
         close(L.unembed(cfg, params["embed"], t(x)).numpy(),
-              JL.unembed(jcfg, jparams["embed"], jnp.asarray(x)), ATOL_LAYER, f"{arch} unembed")
+              unembed_fn(jcfg, jparams["embed"], jnp.asarray(x)), ATOL_LAYER, f"{arch} unembed")
     toks = r.integers(0, cfg.vocab, size=(3, 1)).astype(np.int32)
     cfg, jcfg = f32("whisper-tiny")
     params, jparams = both_params(cfg, seed=3)

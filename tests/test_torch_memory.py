@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 import torch_threads  # noqa: E402,F401  (one intra-op thread)
+from torch_jax_core import jitted_core  # noqa: E402  (the reference core, jitted)
 
 import jax.numpy as jnp  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
@@ -136,7 +137,13 @@ def run_moe(store, selections):
 
 @pytest.fixture(scope="module")
 def ref():
-    """The JAX package's runs, once per module."""
+    """The JAX package's runs, once per module (its integer engine core
+    jitted: tests/torch_jax_core.py)."""
+    with jitted_core():
+        return _ref_runs()
+
+
+def _ref_runs() -> dict:
     out = {}
     table, batches, probe = embed_inputs()
     st = JEmbedStore(JEmbedSpec(arch=jax_arch("internlm2-20b"), **EMBED), jnp.asarray(table))

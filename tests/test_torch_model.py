@@ -51,6 +51,13 @@ def setup():
     return jcfg, cfg, jparams, params
 
 
+def jitted(fn, cfg, *args):
+    """A reference layer call under ``jax.jit`` (``cfg`` static): one
+    compile where the eager call compiles each primitive; within the
+    layer tolerance of the eager result."""
+    return jax.jit(fn, static_argnums=0)(cfg, *args)
+
+
 def close(got, want, atol, what=""):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape and got.dtype == want.dtype, (what, got.shape, want.shape,
@@ -104,18 +111,26 @@ def _flatten(tree, prefix=()):
 
 def test_unported_families_raise():
     """What is still not ported raises, citing its ROADMAP item: the
-    unrolled lowering (the dry-run's) and training."""
+    unrolled lowering (the dry-run's; in serving and in training) and the
+    training meshes (``launch.train --mesh single|multi``)."""
+    from repro_torch.launch import train as launch_train
+
     cfg = configs.reduced("qwen2-0.5b")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.zeros((1, 4), dtype=torch.int32)}
     for bad in (cfg.replace(unroll=True), cfg.replace(causal_skip=True),
                 configs.reduced("jamba-1.5-large-398b").replace(unroll=True)):
         with pytest.raises(NotImplementedError, match="item 17"):
             T.init_cache(bad, 1, 16, device="cpu")
         with pytest.raises(NotImplementedError, match="item 17"):
             registry.build(bad).init(seed=0, device="cpu")
-    model = registry.build(cfg)
-    for train in (lambda: model.loss_fn({}, {}), lambda: T.forward_train(cfg, {}, {})):
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            train()
+        with pytest.raises(NotImplementedError, match="item 17"):
+            T.forward_train(bad, {}, batch)
+        with pytest.raises(NotImplementedError, match="item 17"):
+            registry.build(bad).loss_fn({}, batch)
+    for mesh in ("single", "multi"):
+        with pytest.raises(NotImplementedError, match="item 15c"):
+            launch_train.main(["--reduced", "--device", "cpu", "--mesh", mesh])
 
 
 # --------------------------------------------------------------------------
@@ -180,17 +195,17 @@ def test_layers_match_reference(setup):
     jl = jax.tree.map(lambda a: a[0], jparams["groups"])["layer0"]
     pl = T._group(params["groups"], 0)["layer0"]
     close(L.apply_norm(cfg, pl["norm1"], t(x)).numpy(),
-          JL.apply_norm(jcfg, jl["norm1"], jnp.asarray(x)), ATOL_LAYER, "norm")
+          jitted(JL.apply_norm, jcfg, jl["norm1"], jnp.asarray(x)), ATOL_LAYER, "norm")
     for got, want in zip(L.qkv(cfg, pl["attn"], t(x), t(pos)),
-                         JL.qkv(jcfg, jl["attn"], jnp.asarray(x), jnp.asarray(pos))):
+                         jitted(JL.qkv, jcfg, jl["attn"], jnp.asarray(x), jnp.asarray(pos))):
         close(got.numpy(), want, ATOL_LAYER, "qkv")
     close(L.apply_mlp(cfg, pl["ffn"], t(x)).numpy(),
-          JL.apply_mlp(jcfg, jl["ffn"], jnp.asarray(x)), ATOL_LAYER, "mlp")
+          jitted(JL.apply_mlp, jcfg, jl["ffn"], jnp.asarray(x)), ATOL_LAYER, "mlp")
     toks = r.integers(0, cfg.vocab, size=(3, 4)).astype(np.int32)
     close(L.embed(cfg, params["embed"], t(toks)).numpy(),
           JL.embed(jcfg, jparams["embed"], jnp.asarray(toks)), 0.0, "embed")
     close(L.unembed(cfg, params["embed"], t(x)).numpy(),
-          JL.unembed(jcfg, jparams["embed"], jnp.asarray(x)), ATOL_LAYER, "unembed")
+          jitted(JL.unembed, jcfg, jparams["embed"], jnp.asarray(x)), ATOL_LAYER, "unembed")
 
 
 def test_unembed_of_bf16_params_gives_unrounded_float32_logits():
@@ -215,8 +230,8 @@ def test_chunked_gqa_attention_matches_reference():
     v = r.standard_normal((2, 21, 2, 16)).astype(np.float32)
     for causal in (True, False):
         got = L.chunked_gqa_attention(t(q), t(k), t(v), causal=causal, q_chunk=8)
-        want = JL.chunked_gqa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                        causal=causal, q_chunk=8)
+        want = jax.jit(JL.chunked_gqa_attention, static_argnames=("causal", "q_chunk"))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, q_chunk=8)
         close(got.numpy(), want, ATOL_LAYER, f"causal={causal}")
 
 
@@ -235,8 +250,8 @@ def test_attention_decode_dense_matches_reference(arch):
     kc, vc = (r.standard_normal((B, S_max, cfg.n_kv_heads, cfg.hd)).astype(np.float32)
               for _ in range(2))
     lens = np.array([0, 4, S_max - 1, S_max], np.int32)
-    want = JL.attention_decode_dense(jcfg, jp, jnp.asarray(x), jnp.asarray(kc),
-                                     jnp.asarray(vc), jnp.asarray(lens))
+    want = jitted(JL.attention_decode_dense, jcfg, jp, jnp.asarray(x), jnp.asarray(kc),
+                  jnp.asarray(vc), jnp.asarray(lens))
     got = L.attention_decode_dense(cfg, p, t(x), t(kc), t(vc), t(lens))
     for g, w, what in zip(got, want, ("out", "k_cache", "v_cache")):
         close(g.numpy(), w, ATOL_LAYER, f"{arch} {what}")
@@ -256,9 +271,9 @@ def test_attention_decode_paged_matches_reference(setup):
     btab = np.stack([r.permutation(n_pool)[:pps] for _ in range(B)]).astype(np.int32)
     lens = np.array([0, 13, 40], np.int32)
     jl = jax.tree.map(lambda a: a[0], jparams["groups"])["layer0"]["attn"]
-    wo, wk, wv = JL.attention_decode_paged(
-        jcfg, jl, jnp.asarray(x), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(btab),
-        jnp.asarray(lens))
+    wo, wk, wv = jitted(JL.attention_decode_paged,
+                        jcfg, jl, jnp.asarray(x), jnp.asarray(kp), jnp.asarray(vp),
+                        jnp.asarray(btab), jnp.asarray(lens))
     pl = T._group(params["groups"], 0)["layer0"]["attn"]
     gk, gv = t(kp), t(vp)
     go, gk2, gv2 = L.attention_decode_paged(cfg, pl, t(x), gk, gv, t(btab), t(lens))

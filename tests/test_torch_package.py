@@ -37,6 +37,21 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     cs = engine.init_churn(spec, st, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.run_churn(spec, cs, np.zeros((1, 1, 4), np.int32))
+    # training: the model's init, the loop and the command line
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.train import trainer
+
+    model = registry.build(configs.reduced("qwen2-0.5b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.train_loop(model, trainer.TrainConfig(),
+                           pipeline.DataSpec(vocab=256, seq_len=8, global_batch=2), steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--reduced", "--steps", "1"])
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:

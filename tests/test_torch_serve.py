@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 import torch_threads  # noqa: E402,F401  (one intra-op thread)
+from torch_jax_core import jitted_core  # noqa: E402  (the reference core, jitted)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -102,13 +103,15 @@ def daemon_state():
     st = dataclasses.replace(jtypes.init_state(jcfg), gpt=jnp.asarray(gpt, jnp.int32),
                              rmap=jnp.asarray(rmap, jnp.int32))
     r = np.random.default_rng(21)
-    for _ in range(2):
-        ids = r.choice(jcfg.n_logical, size=30, replace=False).astype(np.int32)
-        cnt = r.integers(1, 40, size=30).astype(np.int32)
-        st = jasp.record_accesses(jcfg, st, jnp.asarray(ids), jnp.asarray(cnt))
-        st = jtel.end_window(jcfg, st)
-    ids = r.choice(jcfg.n_logical, size=25, replace=False).astype(np.int32)
-    st = jasp.record_accesses(jcfg, st, jnp.asarray(ids), jnp.asarray(np.full(25, 3, np.int32)))
+    with jitted_core():
+        for _ in range(2):
+            ids = r.choice(jcfg.n_logical, size=30, replace=False).astype(np.int32)
+            cnt = r.integers(1, 40, size=30).astype(np.int32)
+            st = jasp.record_accesses(jcfg, st, jnp.asarray(ids), jnp.asarray(cnt))
+            st = jtel.end_window(jcfg, st)
+        ids = r.choice(jcfg.n_logical, size=25, replace=False).astype(np.int32)
+        st = jasp.record_accesses(jcfg, st, jnp.asarray(ids),
+                                  jnp.asarray(np.full(25, 3, np.int32)))
     return jcfg, cfg, st
 
 
@@ -121,16 +124,17 @@ def _segment(b):
 def test_select_and_consolidate_batches_match_reference(daemon_state, b, cl):
     jcfg, cfg, jst = daemon_state
     allow, hp_range = _segment(b) if b is not None else (None, None)
-    hot = jtel.hot_mask(jcfg, jst, "ipt")
-    jb, jc = jfilter.select_batches(jcfg, jst, hot, 3, cl,
-                                    None if allow is None else jnp.asarray(allow))
+    # the reference's integer passes jitted, as its gpac_maintenance runs them
+    hot = jax.jit(jtel.hot_mask, static_argnums=(0, 2))(jcfg, jst, "ipt")
+    jb, jc = jax.jit(jfilter.select_batches, static_argnums=(0, 3, 4))(
+        jcfg, jst, hot, 3, cl, None if allow is None else jnp.asarray(allow))
     st = interop.state_from_numpy(jax_state_to_numpy(jst), device="cpu")
     pb, pc = pfilter.select_batches(cfg, st, torch.from_numpy(np.array(hot)), 3, cl,
                                     None if allow is None else torch.from_numpy(allow))
     assert np.array_equal(np.asarray(jb), pb.numpy()) and pb.dtype == torch.int32
     assert np.array_equal(np.asarray(jc), pc.numpy()) and pc.dtype == torch.int32
     assert (pc > 0).any()
-    want = jcons.consolidate_batches(jcfg, jst, jb, hp_range)
+    want = jax.jit(jcons.consolidate_batches, static_argnums=(0, 3))(jcfg, jst, jb, hp_range)
     got = consolidator.consolidate_batches(cfg, st, pb, hp_range)
     assert_same_state(jax_state_to_numpy(want), interop.state_to_numpy(got))
     assert int(got.stats["consolidated_pages"]) > 0
@@ -197,13 +201,19 @@ def serve(eng, reqs):
 
 @pytest.fixture(scope="module")
 def engine_runs(models):
+    """The reference engine with its prefill and its integer core jitted
+    (tests/torch_jax_core.py; eager, each JAX primitive compiles on first
+    use), and the port's."""
     jmodel, jparams, model, params = models
+    jmodel = dataclasses.replace(jmodel, prefill=jax.jit(
+        jmodel.prefill, static_argnames=("max_seq", "n_pool")))
     runs = {}
-    for name, mod, eng in (
-            ("jax", jengine, make_engine(jengine, jmodel, jparams)),
-            ("port", engine, make_engine(engine, model, params, device="cpu"))):
+    for name, mod, m, p, kw in (("jax", jengine, jmodel, jparams, {}),
+                                ("port", engine, model, params, {"device": "cpu"})):
         mod_sched = jsched if mod is jengine else scheduler
-        toks, masses = serve(eng, prompts(mod_sched, model.cfg.vocab, 5, 40, seed=2))
+        with jitted_core():
+            eng = make_engine(mod, m, p, **kw)
+            toks, masses = serve(eng, prompts(mod_sched, model.cfg.vocab, 5, 40, seed=2))
         st = eng.pstate
         runs[name] = dict(tokens=toks, masses=masses, stats=eng.stats(),
                           state=(jax_state_to_numpy(st) if mod is jengine

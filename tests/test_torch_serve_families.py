@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 import torch_threads  # noqa: E402,F401  (one intra-op thread)
+from torch_jax_core import jitted_core  # noqa: E402  (the reference core, jitted)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -76,8 +77,9 @@ def runs():
         for name, mod, sched, model, p, kw in (
                 ("jax", jengine, jsched, jmodel, jparams, {}),
                 ("port", engine, scheduler, registry.build(cfg), params, {"device": "cpu"})):
-            eng = make_engine(mod, sched, model, p, **kw)
-            toks = serve(eng, sched, cfg.vocab)
+            with jitted_core():  # the reference's integer core (tests/torch_jax_core.py)
+                eng = make_engine(mod, sched, model, p, **kw)
+                toks = serve(eng, sched, cfg.vocab)
             out[arch][name] = dict(tokens=toks, stats=eng.stats(),
                                    state=state_to_numpy(eng.pstate, name == "port"),
                                    btab=np.asarray(eng._model_btab_from_gpt()))
