@@ -164,8 +164,27 @@ first use), then, printing one JSON line per phase:
    norms must be finite and the tenth loss below the first. Last, one
    float32 loss-and-gradient step of both models reduced, on the card
    against the CPU, within CARD_CPU_*_RTOL.
+20. train_dp -- data-parallel training over torch.distributed, through the
+   entry points a user calls (``launch.mesh.train_mesh`` / ``make_dist``,
+   ``trainer.make_train_step(..., dist)``), which reach none of the port's
+   kernels either: (a) qwen2-0.5b on a forced one-rank NCCL mesh for 10
+   steps, every param and loss equal to phase 19's no-mesh run bit for
+   bit; (b) ``multihost.launch`` starts 2 ranks of ``python3 chip_smoke.py
+   --train-dp-rank build/train_dp`` on the one card over gloo (NCCL takes
+   one rank per card), each training qwen2-0.5b (AdamW) and then
+   qwen2-moe-a2.7b at full width (Adafactor, 2 micro-batches, compression;
+   cut in depth so that both ranks fit 60 GB together, the cut on its line)
+   for 4 steps of the global batch 8 x 256: the ranks must be bit-identical
+   (device checksums of params and state), every loss within 1e-3 and
+   gradient norm within 5e-2 of this process's one-process run of the same
+   batches, each leaf of qwen2-0.5b's first reduced gradient within 5e-2 of
+   its L2 norm, and the MoE must drop tokens; then both models reduced in
+   float32, one step on the two ranks, the reduced gradients within 1e-4 of
+   each leaf's scale and the loss within 1e-5 of one process's; s/step,
+   tokens/s, peak GB a rank, the drops and the collective bytes and calls
+   per site a step are on its line.
 
-The phases run in the order 1-5, 11, 12, 6, 7, 13-17, 8-10, 18, 19. An engine
+The phases run in the order 1-5, 11, 12, 6, 7, 13-17, 8-10, 18, 19, 20. An engine
 kernel row's ``launches`` counts the engine's main path (the memtierd run);
 ``launches_by_path`` adds the churn, reference, engine_synth, churn_synth,
 service, pebs, ntier (the first policy's kernel run, hybridtier),
@@ -2285,13 +2304,14 @@ def train_tree(params, state, data_step: int) -> dict:
     return {"params": params, "train_state": state, "data_step": torch.tensor(data_step)}
 
 
-def train_phase(arch: str, cut: str | None, tcfg, device) -> dict:
+def train_phase(arch: str, cut: str | None, tcfg, device, keep: dict | None = None) -> dict:
     """``arch`` trained on the port's pipeline (batch 8 x 256, seed 0) for
     TRAIN_STEPS steps: TRAIN_UNTIMED untimed, then timed, a Supervisor
     checkpoint after step TRAIN_SAVE_AT restored (to the host) and held bit
     for bit to the live tensors, TRAIN_PROFILED more steps profiled; then
     the restored state continued by ``train_loop`` to TRAIN_STEPS, its
-    losses held to the uninterrupted run's."""
+    losses held to the uninterrupted run's. ``keep`` receives a host copy
+    of the params after step TRAIN_STEPS."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = configs.get(arch)
@@ -2332,6 +2352,8 @@ def train_phase(arch: str, cut: str | None, tcfg, device) -> dict:
         dt = one_step()
         if step > TRAIN_UNTIMED:
             step_s.append(dt)
+        if step == TRAIN_STEPS and keep is not None:
+            keep["params"] = tr.map(lambda v: v.detach().cpu(), params)
         if step == TRAIN_SAVE_AT:
             t = time.perf_counter()
             thread = sup.maybe_save(step, train_tree(params, state, data.step))
@@ -2440,15 +2462,18 @@ def card_vs_cpu_phase(device) -> dict:
                 grad_rtol=CARD_CPU_GRAD_RTOL, **out)
 
 
-def train_phases(device) -> list:
+def train_phases(device) -> tuple[list, dict]:
     """qwen2-0.5b at full size with AdamW; qwen2-moe-a2.7b at full width
     with Adafactor, 2 micro-batches and compression, cut in depth to
     TRAIN_BUDGET_GB; both models one reduced float32 step card against
-    CPU."""
+    CPU. -> (the lines, qwen2-0.5b's params (on the host) and losses after
+    TRAIN_STEPS for the train_dp phase)."""
     opt = dict(lr=TRAIN_LR, warmup_steps=min(100, TRAIN_STEPS // 10), total_steps=TRAIN_STEPS)
     t0 = time.perf_counter()
+    kept = {}
     lines = [train_phase("qwen2-0.5b", None,
-                         trainer.TrainConfig(opt=optimizer.OptConfig(**opt)), device)]
+                         trainer.TrainConfig(opt=optimizer.OptConfig(**opt)), device, keep=kept)]
+    kept["losses"] = lines[-1]["losses"][:TRAIN_STEPS]
     emit(lines[-1])
     depth, cut = moe_train_depth("qwen2-moe-a2.7b")
     moe = trainer.TrainConfig(micro_batches=2, compress_grads=True,
@@ -2459,7 +2484,309 @@ def train_phases(device) -> list:
     lines.append(card_vs_cpu_phase(device))
     lines[-1]["train_phases_s"] = time.perf_counter() - t0
     emit(lines[-1])
-    return lines
+    return lines, kept
+
+
+# --------------------------------------------------------------------------
+# 20. train_dp: data-parallel training over torch.distributed
+# --------------------------------------------------------------------------
+TRAIN_DP_RANKS, TRAIN_DP_STEPS = 2, 4
+TRAIN_DP_DIR = ROOT / "build" / "train_dp"
+# the two ranks' MoE: the largest depth at which both ranks' state (at
+# MOE_BYTES_PER_PARAM) and TRAIN_DP_RESERVE_GB of activations each fit
+# TRAIN_DP_BUDGET_GB together (the train phase's MoE peaks ~2.9 GB above its state)
+TRAIN_DP_BUDGET_GB, TRAIN_DP_RESERVE_GB = 60, 3
+# the bf16 train tolerance (tests/test_torch_train.py's BF16_LOSS_RTOL and
+# BF16_GRAD_RTOL): each step's loss, each step's gradient norm, and each leaf
+# of the first step's gradient by its L2 norm. (Not each entry against the
+# leaf's largest, as the CPU tests hold a batch of 48 tokens: the card's
+# bf16 embedding gradient sums a frequent token's 2,048-position rows with a
+# bf16 rounding each, differently for one rank's half of the batch and for
+# the whole; its largest entry moved by 8.5% of the leaf's largest.)
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 1e-3, 5e-2
+# the float32 witness: both models reduced, one step at TRAIN_BATCH x
+# F32_SEQ, the ranks' reduced gradients against one process's at the CPU
+# tests' float32 tolerance (tests/test_torch_dist.py), entry by entry
+F32_SEQ, F32_LOSS_RTOL, F32_GRAD_RTOL = 64, 1e-5, 1e-4
+TRAIN_DP_SITES = ("grads", "moe_counts", "moe_top1", "ce_count", "loss")
+
+
+def dp_moe_depth(arch: str) -> tuple[int, str]:
+    """(depth, the cut as printed) of ``arch`` for the two ranks."""
+    cfg = configs.get(arch)
+    one, two = (cfg.replace(n_layers=n).param_count() for n in (1, 2))
+    per_layer, base = two - one, 2 * one - two
+    per_rank = TRAIN_DP_BUDGET_GB / TRAIN_DP_RANKS - TRAIN_DP_RESERVE_GB
+    depth = int((per_rank * 1e9 / MOE_BYTES_PER_PARAM - base) // per_layer)
+    n = base + depth * per_layer
+    total_gb = TRAIN_DP_RANKS * (n * MOE_BYTES_PER_PARAM / 1e9 + TRAIN_DP_RESERVE_GB)
+    return depth, (f"depth {depth} of {cfg.n_layers}: {TRAIN_DP_RANKS} ranks x ({n / 1e9:.3f} B "
+                   f"params x {MOE_BYTES_PER_PARAM} bytes + {TRAIN_DP_RESERVE_GB} GB of "
+                   f"activations) = {total_gb:.1f} GB of {TRAIN_DP_BUDGET_GB} on the one card")
+
+
+def dp_models() -> list:
+    """(arch, depth cut or None, TrainConfig) of the two ranks' runs: the
+    train phase's settings."""
+    opt = dict(lr=TRAIN_LR, warmup_steps=min(100, TRAIN_STEPS // 10), total_steps=TRAIN_STEPS)
+    depth, cut = dp_moe_depth("qwen2-moe-a2.7b")
+    return [("qwen2-0.5b", None, trainer.TrainConfig(opt=optimizer.OptConfig(**opt))),
+            ("qwen2-moe-a2.7b", (depth, cut), trainer.TrainConfig(
+                micro_batches=2, compress_grads=True,
+                opt=optimizer.OptConfig(name="adafactor", **opt)))]
+
+
+def device_checksum(tree) -> str:
+    """A digest of every leaf's bits computed on the card: each leaf's words
+    times odd position-dependent multipliers, summed mod 2^64, then the
+    leaves' sums hashed together (any one differing word changes it)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in tr.items(tree):
+        flat = v.detach().reshape(-1)
+        words = flat.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[flat.element_size()])
+        total = 0
+        for a in range(0, words.numel(), 1 << 24):
+            w = words[a:a + (1 << 24)].to(torch.int64)
+            mult = torch.arange(a, a + w.numel(), device=w.device) * 2654435761 % (1 << 32) | 1
+            total += int((w * mult).sum())  # int64 sums wrap alike on every rank
+        h.update(f"{k}:{total % (1 << 64)};".encode())
+    return h.hexdigest()
+
+
+def moe_drops(model, tcfg, params, batch, dist) -> int:
+    """This rank's dropped (token, choice) pairs in a forward of the step's
+    micro-batches (``moe.dispatch_slots``' kept mask)."""
+    dropped, inner = [], moe.dispatch_slots
+
+    def counting(*a, **kw):
+        out = inner(*a, **kw)
+        dropped.append((~out[2]).sum())
+        return out
+
+    moe.dispatch_slots = counting
+    try:
+        micro = trainer._split_micro(trainer.rank_batch(batch, tcfg.micro_batches, dist),
+                                     tcfg.micro_batches)
+        with torch.no_grad():
+            for i in range(tcfg.micro_batches):
+                model.loss_fn(params, {k: v[i] for k, v in micro.items()}, dist)
+    finally:
+        moe.dispatch_slots = inner
+    return int(sum(dropped))
+
+
+def dp_run(arch: str, cut, tcfg, device, dist, steps: int, first_grads: bool = False,
+           keep_params: bool = False) -> tuple:
+    """``steps`` steps of ``arch`` from seed 0 on the pipeline's global
+    batches (8 x 256, seed 0), under ``dist`` (``NO_DIST``: one process):
+    (its line, the first step's gradients on the host if asked, the final
+    params on the host if asked)."""
+    cfg = configs.get(arch)
+    if cut is not None:
+        cfg = cfg.replace(n_layers=cut[0])
+    model = model_registry.build(cfg)
+    spec = pipeline.DataSpec(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=device)
+    state = trainer.init_train_state(tcfg, params)
+    step_fn = trainer.make_train_step(model, tcfg, dist)
+    data = pipeline.DataState()
+    losses, norms, step_s, grads, drops = [], [], [], None, None
+    registry.reset_launch_counts()
+    for k in range(1, steps + 1):
+        batch, data = pipeline.next_batch(spec, data)
+        batch = trainer.batch_to(batch, device)
+        if k == 1 and cfg.is_moe:
+            drops = moe_drops(model, tcfg, params, batch, dist)
+        if k == 1 and first_grads:
+            _, _, g = trainer.step_grads(model, tcfg, params, batch, dist)
+            grads = tr.map(lambda v: v.detach().cpu(), g)
+            del g
+        sharding.reset_collective_bytes()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, mets = step_fn(params, state, batch)
+        losses.append(float(mets["loss"]))  # syncs
+        norms.append(float(mets["grad_norm"]))
+        step_s.append(time.perf_counter() - t)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_s[1:])
+    line = dict(arch=cfg.name, cut=None if cut is None else cut[1], n_layers=cfg.n_layers,
+                params=sum(p.numel() for p in tr.leaves(params)), optimizer=tcfg.opt.name,
+                micro_batches=tcfg.micro_batches, compress_grads=tcfg.compress_grads,
+                steps=steps, losses=losses, grad_norms=norms, s_per_step=med,
+                s_per_step_all=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med,
+                peak_gb=peak_gb, drops_step1=drops,
+                collective_bytes_per_step=sharding.collective_bytes_total(),
+                collective_calls_per_step=sharding.collective_calls(),
+                kernel_launches=registry.launch_counts(),
+                checksum=device_checksum({"params": params, "state": state}))
+    host = tr.map(lambda v: v.detach().cpu(), params) if keep_params else None
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, grads, host
+
+
+def f32_witness(device, dist):
+    """One step's loss and reduced gradients (on the host) of both models
+    reduced in float32, with their ``dp_models`` settings, under ``dist``:
+    -> [(arch, TrainConfig, loss, gradients)]. Held at 1e-4 of each leaf's
+    scale between the ranks and one process, this parts a fault in the
+    data-parallel logic from bf16's summation order."""
+    out = []
+    for arch, _, tcfg in dp_models():
+        cfg = configs.reduced(arch).replace(dtype=torch.float32)
+        model = model_registry.build(cfg)
+        params = model.init(seed=1, device=device)
+        spec = pipeline.DataSpec(vocab=cfg.vocab, seq_len=F32_SEQ, global_batch=TRAIN_BATCH)
+        batch, _ = pipeline.next_batch(spec, pipeline.DataState())
+        loss, _, g = trainer.step_grads(model, tcfg, params, trainer.batch_to(batch, device),
+                                        dist)
+        out.append((arch, tcfg, float(loss), tr.map(lambda v: v.detach().cpu(), g)))
+    return out
+
+
+def train_dp_rank_worker(out_dir: str) -> None:
+    """One rank of the ``train_dp`` job (``--train-dp-rank``): both models
+    data-parallel on the job's gloo mesh (data 2 x model 1); rank 0 also
+    saves the first step's gradients of qwen2-0.5b."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import multihost
+
+    info = multihost.initialize()
+    dist = mesh_mod.make_dist(mesh_mod.train_mesh(TRAIN_DP_RANKS, 1))
+    out = {}
+    for arch, cut, tcfg in dp_models():
+        dense = arch == "qwen2-0.5b"  # every rank takes the gradient (collectives)
+        out[arch], grads, _ = dp_run(arch, cut, tcfg, dist.mesh.device, dist, TRAIN_DP_STEPS,
+                                     first_grads=dense)
+        if dense and info.process_id == 0:
+            torch.save(grads, pathlib.Path(out_dir) / "grads_qwen2-0.5b.pt")
+        del grads
+    for arch, tcfg, loss, grads in f32_witness(dist.mesh.device, dist):
+        if info.process_id == 0:
+            torch.save({"loss": loss, "grads": grads},
+                       pathlib.Path(out_dir) / f"f32_{arch}.pt")
+    torch.distributed.destroy_process_group()
+    (pathlib.Path(out_dir) / f"rank{info.process_id}.json").write_text(json.dumps(out))
+    print(f"train_dp rank {info.process_id} of {info.num_processes} done", flush=True)
+
+
+def train_dp_phase(device, kept: dict) -> dict:
+    """(a) qwen2-0.5b at full size, AdamW, on a forced one-rank NCCL mesh
+    for TRAIN_STEPS steps: every param and every loss equal to the train
+    phase's no-mesh run's bit for bit (``kept``, from ``train_phases``).
+    (b) ``multihost.launch`` starts TRAIN_DP_RANKS ranks on this one card
+    over gloo; each trains qwen2-0.5b (AdamW) and then qwen2-moe-a2.7b at
+    full width (Adafactor, 2 micro-batches, compression; cut in depth by
+    ``dp_moe_depth``) for TRAIN_DP_STEPS steps: the ranks
+    bit-identical (device checksums of params and state), each within the
+    bf16 train tolerance of this process's one-process run of the same
+    global batches; and both models reduced in float32, one step on the
+    ranks, their reduced gradients within F32_GRAD_RTOL of each leaf's
+    scale of one process's (``f32_witness``)."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import multihost
+    from repro_torch.models.dist import NO_DIST
+
+    t0 = time.perf_counter()
+    models = dp_models()
+    dense = models[0]
+    d1 = mesh_mod.make_dist(mesh_mod.train_mesh(1, 1, device=device))
+    one, _, params = dp_run(*dense, d1.mesh.device, d1, TRAIN_STEPS, keep_params=True)
+    torch.distributed.destroy_process_group()
+    want = kept.pop("params")
+    bad = [k for (k, a), (_, b) in zip(tr.items(params), tr.items(want)) if not same_bits(a, b)]
+    if bad or len(tr.leaves(params)) != len(tr.leaves(want)):
+        raise AssertionError(f"train_dp: one-rank mesh params differ from the no-mesh run's: "
+                             f"{bad[:5]}")
+    if one["losses"] != kept["losses"]:
+        raise AssertionError(f"train_dp: one-rank mesh losses {one['losses']} against "
+                             f"{kept['losses']}")
+    one.update(mesh="data 1 x model 1, NCCL", params_bit_identical=True)
+    del params, want
+
+    solo, solo_grads = {}, None
+    for arch, cut, tcfg in models:
+        solo[arch], g, _ = dp_run(arch, cut, tcfg, device, NO_DIST, TRAIN_DP_STEPS,
+                                  first_grads=arch == "qwen2-0.5b")
+        if g is not None:
+            solo_grads = g
+    TRAIN_DP_DIR.mkdir(parents=True, exist_ok=True)
+    for old in TRAIN_DP_DIR.iterdir():
+        old.unlink()
+    t = time.perf_counter()
+    results = multihost.launch_check(str(ROOT / "chip_smoke.py"), marker="done",
+                                     num_processes=TRAIN_DP_RANKS,
+                                     args=("--train-dp-rank", TRAIN_DP_DIR), backend="gloo",
+                                     device="cuda", cwd=str(ROOT), timeout=900)
+    job_s = time.perf_counter() - t
+    ranks = [json.loads((TRAIN_DP_DIR / f"rank{r}.json").read_text())
+             for r in range(TRAIN_DP_RANKS)]
+    runs = {}
+    for arch, _, _ in models:
+        lines = [r[arch] for r in ranks]
+        if len({ln["checksum"] for ln in lines}) != 1:
+            raise AssertionError(f"train_dp: {arch}'s ranks differ: "
+                                 f"{[ln['checksum'] for ln in lines]}")
+        ref = solo[arch]
+        for what, rtol in (("losses", BF16_LOSS_RTOL), ("grad_norms", BF16_GRAD_RTOL)):
+            diff = max(abs(a - b) / abs(b) for a, b in zip(lines[0][what], ref[what]))
+            if not diff <= rtol:
+                raise AssertionError(f"train_dp: {arch} {what} {lines[0][what]} against the "
+                                     f"one-process run's {ref[what]}")
+            lines[0][f"{what}_max_rel_diff"] = diff
+        if any(ln["kernel_launches"].get(k) for ln in lines for k in ln["kernel_launches"]):
+            raise AssertionError(f"train_dp: {arch} launched the port's kernels")
+        need = [s for s in TRAIN_DP_SITES if "moe" in arch or not s.startswith("moe")]
+        missing = [s for s in need if s not in lines[0]["collective_calls_per_step"]]
+        if missing:
+            raise AssertionError(f"train_dp: {arch} issued no {missing} collective")
+        if "moe" in arch and not (lines[0]["drops_step1"] or lines[1]["drops_step1"]):
+            raise AssertionError(f"train_dp: {arch} dropped no tokens")
+        runs[arch] = dict(ranks=lines, one_process=ref,
+                          drops_step1_sum=(sum(ln["drops_step1"] for ln in lines)
+                                           if "moe" in arch else None))
+    got = torch.load(TRAIN_DP_DIR / "grads_qwen2-0.5b.pt")
+    worst_l2, worst_entry = 0.0, 0.0
+    for (k, g), (_, w) in zip(tr.items(got), tr.items(solo_grads)):
+        g, w = g.float(), w.float()
+        norm, err = float(w.norm()), float((g - w).norm())
+        if not err <= BF16_GRAD_RTOL * norm:
+            raise AssertionError(f"train_dp: qwen2-0.5b step-1 gradient {k} differs by {err} "
+                                 f"in L2 (its norm {norm})")
+        worst_l2 = max(worst_l2, err / norm if norm else 0.0)
+        scale = float(w.abs().max())
+        worst_entry = max(worst_entry, float((g - w).abs().max()) / scale if scale else 0.0)
+    runs["qwen2-0.5b"].update(step1_grad_max_rel_l2=worst_l2,
+                              step1_grad_max_entry_over_scale=worst_entry)
+    f32 = {}
+    for arch, tcfg, loss, want in f32_witness(device, NO_DIST):
+        got = torch.load(TRAIN_DP_DIR / f"f32_{arch}.pt")
+        loss_diff = abs(got["loss"] - loss) / abs(loss)
+        if not loss_diff <= F32_LOSS_RTOL:
+            raise AssertionError(f"train_dp: float32 {arch} loss {got['loss']} on the ranks "
+                                 f"against {loss} in one process")
+        worst = 0.0
+        for (k, g), (_, w) in zip(tr.items(got["grads"]), tr.items(want)):
+            scale, err = float(w.abs().max()), float((g - w).abs().max())
+            if not err <= F32_GRAD_RTOL * scale + 1e-12:
+                raise AssertionError(f"train_dp: float32 {arch} gradient {k} differs by {err} "
+                                     f"(largest {scale})")
+            worst = max(worst, err / scale if scale else 0.0)
+        f32[arch] = dict(micro_batches=tcfg.micro_batches, loss_rel_diff=loss_diff,
+                         grad_max_rel_diff=worst, leaves=len(tr.leaves(want)))
+    return dict(phase="train_dp", one_rank_mesh=one, ranks=TRAIN_DP_RANKS, backend="gloo",
+                job_s=job_s, outputs=[r.stdout.strip().splitlines()[-1] for r in results],
+                loss_rtol=BF16_LOSS_RTOL, grad_rtol=BF16_GRAD_RTOL, runs=runs,
+                f32_witness=dict(reduced=True, batch=[TRAIN_BATCH, F32_SEQ],
+                                 loss_rtol=F32_LOSS_RTOL, grad_rtol=F32_GRAD_RTOL, **f32),
+                ranks_bit_identical=True, seconds=time.perf_counter() - t0)
 
 
 def main() -> None:
@@ -2571,7 +2898,11 @@ def main() -> None:
     _, family_rows = families_phase(device, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    train_phases(device)
+    _, kept = train_phases(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(train_dp_phase(device, kept))
+    del kept
     rows = kernel_rows + serve_rows + registry_rows + family_rows
     # the launch floor: this run's time of K2 on the serve path's 1,632 bytes
     floor = next(r["ms"] for r in serve_rows if r["name"] == "hot_count")
@@ -2587,5 +2918,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--train-dp-rank"]:
+        train_dp_rank_worker(sys.argv[2])
     else:
         main()

@@ -173,20 +173,39 @@ def guest_tables(spec, n_shards: int) -> dict[str, np.ndarray]:
 # number of calls since the last reset.
 _COLLECTIVE_BYTES: dict[str, int] = {}
 _COLLECTIVE_CALLS: dict[str, int] = {}
+_COLLECTIVE_TOTAL: dict[str, int] = {}
 
 
 def reset_collective_bytes() -> None:
     """Clear the per-site record (call before the run to attribute)."""
     _COLLECTIVE_BYTES.clear()
     _COLLECTIVE_CALLS.clear()
+    _COLLECTIVE_TOTAL.clear()
 
 
 def collective_bytes() -> dict[str, int]:
-    """Per-site payload bytes of the last call: ``merge_window`` (the
+    """Per-site payload bytes of the last visit: ``merge_window`` (the
     replicated and churn paths, one per window), ``host_exchange`` (the
     host-partitioned arbitration exchange, one per stride group) and
-    ``host_chunk_exit`` (the host-partitioned rebuild, one per chunk)."""
+    ``host_chunk_exit`` (the host-partitioned rebuild, one per chunk); in
+    data-parallel training (``models.dist``) ``grads`` (the gradient
+    reduce, one per step), ``moe_counts`` and ``moe_top1`` (one each per
+    MoE layer's forward, again when remat recomputes it), ``ce_count`` (one
+    per micro-batch) and ``loss`` (one per step)."""
     return dict(_COLLECTIVE_BYTES)
+
+
+def collective_bytes_total() -> dict[str, int]:
+    """Per-site payload bytes summed over every visit since the last reset."""
+    return dict(_COLLECTIVE_TOTAL)
+
+
+def count_collective(site: str, nbytes: int, calls: int) -> None:
+    """Record one visit of ``site``: ``nbytes`` of payload in ``calls``
+    collective calls."""
+    _COLLECTIVE_BYTES[site] = nbytes
+    _COLLECTIVE_TOTAL[site] = _COLLECTIVE_TOTAL.get(site, 0) + nbytes
+    _COLLECTIVE_CALLS[site] = _COLLECTIVE_CALLS.get(site, 0) + calls
 
 
 def collective_calls() -> dict[str, int]:
@@ -257,11 +276,10 @@ def _psum(mesh: GuestMesh, site: str, leaves: list[torch.Tensor],
     ``inplace`` (the payload pools, their non-owned rows already zero)
     reduced where they lie, beside it. Returns the summed leaves in their
     own dtypes and shapes; the pools hold their sums."""
-    _COLLECTIVE_BYTES[site] = sum(t.numel() * t.element_size()
-                                  for t in (*leaves, *inplace))
     flat = torch.cat([_to_bits(t) for t in leaves])
     n_calls = _all_reduce(mesh, [flat, *(_inplace_view(p) for p in inplace)])
-    _COLLECTIVE_CALLS[site] = _COLLECTIVE_CALLS.get(site, 0) + n_calls
+    count_collective(site, sum(t.numel() * t.element_size() for t in (*leaves, *inplace)),
+                     n_calls)
     out, at = [], 0
     for t in leaves:
         n = _n_words(t)

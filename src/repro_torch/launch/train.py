@@ -7,8 +7,19 @@ checkpoints every ``--save-every`` steps and a resume from ``LATEST``.
         --reduced --steps 100 --ckpt-dir /tmp/ckpt [--device cpu]
 
 It runs on the CUDA card unless ``--device`` names another device; weights
-are random, from seed 0. ``--mesh`` takes only ``none``: the data- and
-model-parallel meshes are not ported yet.
+are random, from seed 0. ``--mesh single`` (``multi``: with a leading pod
+axis) trains data-parallel on ``launch.mesh.make_production_mesh``, one
+rank per card, inside a job that ``launch.multihost`` starts (each rank
+runs this module; NCCL on CUDA, gloo on the CPU): every rank takes its rows
+of each global batch, the gradients are summed over the data axes, and the
+result is the one-device step's over the global batch. The mesh must have
+as many places as the job has ranks (``DEFAULT_DATA x DEFAULT_MODEL``,
+x ``DEFAULT_PODS``), else it raises naming both counts. Rank 0 logs and
+writes the checkpoints; every rank resumes from them.
+
+    python -c "from repro_torch.launch import multihost; multihost.launch(
+        'src/repro_torch/launch/train.py', num_processes=256,
+        args=('--mesh', 'single', '--steps', '100'))"
 """
 from __future__ import annotations
 
@@ -20,7 +31,10 @@ import torch
 from repro_torch import configs as config_lib
 from repro_torch.data import pipeline
 from repro_torch.kernels import runtime
+from repro_torch.launch import multihost
+from repro_torch.launch.mesh import make_dist, make_production_mesh
 from repro_torch.models import registry
+from repro_torch.models.dist import NO_DIST
 from repro_torch.train import checkpoint, fault, optimizer, trainer
 from repro_torch.train import tree as tr
 
@@ -42,11 +56,16 @@ def main(argv=None) -> float:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    dist = NO_DIST
     if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} is not ported to PyTorch yet (ROADMAP queue 1, item 15c: "
-            "data-parallel training, models/dist.py, launch/sharding.py and the training meshes)")
-    device = runtime.resolve_device(args.device)
+        if not torch.distributed.is_initialized():
+            multihost.initialize()  # a no-op for one process
+        dist = make_dist(make_production_mesh(multi_pod=args.mesh == "multi",
+                                              device=args.device))
+        device = dist.mesh.device
+    else:
+        device = runtime.resolve_device(args.device)
+    log = print if dist.is_coordinator else (lambda *a, **k: None)
     cfg = config_lib.reduced(args.arch) if args.reduced else config_lib.get(args.arch)
     model = registry.build(cfg)
     tcfg = trainer.TrainConfig(
@@ -68,11 +87,11 @@ def main(argv=None) -> float:
             restored, man = checkpoint.restore(args.ckpt_dir, like)
             params, train_state = restored["params"], restored["train_state"]
             data_state = pipeline.DataState(step=int(restored["data_step"]))
-            print(f"[train] resumed from step {man['step']}")
+            log(f"[train] resumed from step {man['step']}")
 
-    step_fn = trainer.make_train_step(model, tcfg)
+    step_fn = trainer.make_train_step(model, tcfg, dist)
     n_params = sum(p.numel() for p in tr.leaves(params))
-    print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params, "
+    log(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params, "
           f"{args.steps} steps, batch {args.global_batch}x{args.seq_len}")
 
     t0 = time.time()
@@ -85,19 +104,19 @@ def main(argv=None) -> float:
         if supervisor:
             writing.append(supervisor.maybe_save(
                 step + 1, {"params": params, "train_state": train_state,
-                           "data_step": torch.tensor(data_state.step)}))
+                           "data_step": torch.tensor(data_state.step)}, dist=dist))
         if (step + 1) % args.log_every == 0 or step == start:
             tps = (step + 1 - start) * args.global_batch * args.seq_len / (time.time() - t0)
-            print(f"[train] step {step + 1:5d} loss {float(mets['loss']):.4f} "
+            log(f"[train] step {step + 1:5d} loss {float(mets['loss']):.4f} "
                   f"lr {float(mets['lr']):.2e} gnorm "
                   f"{float(mets['grad_norm']):.2f} ({tps:.0f} tok/s)")
     for t in writing:  # a checkpoint's thread must finish before the process ends
         if t is not None:
             t.join()
     if mets is None:
-        print(f"[train] nothing to do: the checkpoint is at step {start} of {args.steps}")
+        log(f"[train] nothing to do: the checkpoint is at step {start} of {args.steps}")
         return float("nan")
-    print(f"[train] done in {time.time() - t0:.1f}s; final loss {float(mets['loss']):.4f}")
+    log(f"[train] done in {time.time() - t0:.1f}s; final loss {float(mets['loss']):.4f}")
     return float(mets["loss"])
 
 

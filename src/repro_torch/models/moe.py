@@ -15,6 +15,16 @@ lowest expert index; :func:`route` selects with a stable descending sort,
 which does the same (``torch.topk`` promises no order among ties). At
 decode T is the engine's ``max_seqs`` (idle slots included), so the
 capacity is often 1 and drops are the normal case.
+
+Data-parallel training (``dist`` with a mesh) computes what the reference
+computes over the global batch: each DP rank holds its rows, the capacity
+comes from the global token count, each rank's (token, choice) pairs take
+their slots behind every earlier rank's (the per-expert counts are
+all-gathered over the DP group), and :func:`aux_loss` divides by the global
+token count with the top-1 counts summed over the ranks, so that the ranks'
+losses and gradients sum to the reference's. A rank computes the expert
+FFN of its own kept pairs only. With ``NO_DIST`` or a one-rank mesh the
+collectives change nothing.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.dist import NO_DIST
 
 
 def pad_experts(cfg: ArchConfig) -> int:
@@ -35,6 +46,8 @@ def _bank(gen: torch.Generator, E: int, i: int, o: int, dtype) -> torch.Tensor:
     """E independent ``dense_init`` matrices, filled one expert at a time so
     that the float32 draw of a whole bank is never held at once."""
     bank = torch.empty((E, i, o), dtype=dtype, device=gen.device)
+    if bank.is_meta:  # shapes only (``registry.param_shapes``)
+        return bank
     for e in range(E):
         bank[e] = L.dense_init(gen, i, o, dtype)
     return bank
@@ -75,30 +88,39 @@ def route(cfg: ArchConfig, p: dict, xt: torch.Tensor) -> tuple:
     return torch.softmax(vals[:, :cfg.top_k], dim=-1), experts[:, :cfg.top_k]
 
 
-def dispatch_slots(cfg: ArchConfig, experts: torch.Tensor, cap: int) -> tuple:
+def dispatch_slots(cfg: ArchConfig, experts: torch.Tensor, cap: int, dist=NO_DIST) -> tuple:
     """(T, k) experts -> (flat experts (T*k,), each pair's position in its
     expert's buffer (T*k,), kept mask (T*k,)): positions count the earlier
-    pairs on the same expert in token-major order."""
+    pairs on the same expert in token-major order. Under a mesh the pair is
+    kept when its global position (behind the earlier DP ranks' pairs on
+    its expert) is below ``cap``; the position returned is the rank's own."""
     flat_e = experts.reshape(-1)
     onehot = F.one_hot(flat_e, cfg.e_pad).to(torch.int32)  # (T*k, E)
     pos = ((torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot) * onehot).sum(-1)
-    return flat_e, pos, pos < cap
+    if dist.mesh is None:
+        return flat_e, pos, pos < cap
+    counts = dist.all_gather(onehot.sum(0, dtype=torch.int32), "moe_counts")  # (dp, E)
+    before = counts[:dist.dp_rank()].sum(0, dtype=torch.int32)  # the earlier ranks' pairs
+    return flat_e, pos, pos + before[flat_e] < cap
 
 
-def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d)."""
+def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, dist=NO_DIST) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d); ``dist``: this DP rank's rows of the
+    global batch."""
     B, S, d = x.shape
     E = p["experts"]["wi_gate"].shape[0]
     T, k = B * S, cfg.top_k
     xt = x.reshape(T, d)
     weights, experts = route(cfg, p, xt)
-    cap = capacity(cfg, T)
-    flat_e, pos, keep = dispatch_slots(cfg, experts, cap)
+    cap = capacity(cfg, T * dist.dp_size())
+    flat_e, pos, keep = dispatch_slots(cfg, experts, cap, dist)
     safe_pos = torch.where(keep, pos, cap).long()  # the drop row
 
     buf = torch.zeros((E, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[flat_e, safe_pos] = xt.repeat_interleave(k, dim=0)  # token-major, as flat_e
-    buf = buf[:, :cap]
+    buf = dist.constrain(buf, dist.tp, None, None)
+    xk = dist.constrain(xt.repeat_interleave(k, dim=0), dist.dp, None)  # token-major, as flat_e
+    buf[flat_e, safe_pos] = xk
+    buf = dist.constrain(buf[:, :cap], dist.tp, None, None)
 
     # the expert FFN, batched over E: float32 products of the buffer's dtype
     ex = p["experts"]
@@ -115,15 +137,19 @@ def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, d)
 
 
-def aux_loss(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def aux_loss(cfg: ArchConfig, p: dict, x: torch.Tensor, dist=NO_DIST) -> torch.Tensor:
     """Load-balance auxiliary loss (Switch): E * sum(f_e * p_e), float32.
     The gradient flows through the mean router probability p_e only; the
-    top-1 counts f_e (``argmax``, ties to the lowest expert) carry none."""
+    top-1 counts f_e (``argmax``, ties to the lowest expert) carry none.
+    Under a mesh both means are over the global tokens: the counts summed
+    over the DP ranks, the rank's probabilities divided by the global
+    count, so that the ranks' values sum to the reference's."""
     logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(), p["router"])
-    E = logits.shape[-1]
+    T, E = logits.shape
     if E > cfg.n_experts:
         logits = torch.where(torch.arange(E, device=x.device) >= cfg.n_experts,
                              float("-inf"), logits)
     probs = torch.softmax(logits, dim=-1)
-    f = F.one_hot(torch.argmax(logits, dim=-1), E).float().mean(0)
-    return cfg.n_experts * torch.sum(f * probs.mean(0))
+    top1 = dist.psum(F.one_hot(torch.argmax(logits, dim=-1), E).float().sum(0), "moe_top1")
+    n = T * dist.dp_size()
+    return cfg.n_experts * torch.sum(top1 / n * (probs.sum(0) / n))

@@ -17,13 +17,14 @@ from repro_torch.configs.base import SHAPE_SPECS, ArchConfig
 from repro_torch.kernels import runtime
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.dist import NO_DIST
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
     init: Callable  # (seed=0, device=None) -> params
-    loss_fn: Callable  # (params, batch) -> (loss, {"ce", "aux"})
+    loss_fn: Callable  # (params, batch, dist=NO_DIST) -> (loss, {"ce", "aux"})
     prefill: Callable  # (params, batch, max_seq=None, n_pool=None) -> (logits, cache)
     decode: Callable  # (params, cache, tokens, kernel_backend="auto") -> (logits, cache)
     init_cache: Callable  # (batch, max_seq, n_pool=None, device=None) -> cache
@@ -36,6 +37,19 @@ def _init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     return T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device: the init's
+    tree of shapes and dtypes, nothing allocated or drawn."""
+
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The params' tree as ``model.init`` builds it, on the ``meta`` device
+    (the reference's ``jax.eval_shape`` of its init)."""
+    return T.init_params(cfg, _MetaGenerator())
+
+
 def build(cfg: ArchConfig | str) -> Model:
     if isinstance(cfg, str):
         cfg = config_lib.get(cfg)
@@ -43,7 +57,7 @@ def build(cfg: ArchConfig | str) -> Model:
     return Model(
         cfg=cfg,
         init=lambda seed=0, device=None: _init(cfg, seed, device),
-        loss_fn=lambda params, batch: T.loss_fn(cfg, params, batch),
+        loss_fn=lambda params, batch, dist=NO_DIST: T.loss_fn(cfg, params, batch, dist),
         prefill=lambda params, batch, max_seq=None, n_pool=None:
             T.prefill(cfg, params, batch, max_seq, n_pool),
         decode=lambda params, cache, tokens, kernel_backend="auto":

@@ -33,6 +33,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
+from repro_torch.models.dist import NO_DIST, Dist
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -147,7 +148,8 @@ def _embed_tokens(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     return h
 
 
-def _apply_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, j: int, aux: bool = False):
+def _apply_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, j: int, aux: bool = False,
+               dist: Dist = NO_DIST):
     """The FFN sub-block, dense or MoE: h, or with ``aux`` (training) the
     pair (h, float32 load-balance loss; 0 for a dense layer)."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device) if aux else None
@@ -155,8 +157,8 @@ def _apply_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, j: int, aux: bool = F
         return (h, zero) if aux else h
     x = L.apply_norm(cfg, lp["norm2"], h)
     if cfg.layer_is_moe(j):
-        out = h + MOE.apply_moe(cfg, lp["ffn"], x)
-        return (out, MOE.aux_loss(cfg, lp["ffn"], x)) if aux else out
+        out = h + MOE.apply_moe(cfg, lp["ffn"], x, dist)
+        return (out, MOE.aux_loss(cfg, lp["ffn"], x, dist)) if aux else out
     out = h + L.apply_mlp(cfg, lp["ffn"], x)
     return (out, zero) if aux else out
 
@@ -195,7 +197,7 @@ TRAIN_MIXERS = {"mamba": M.mamba_train, "mlstm": X.mlstm_train, "slstm": X.slstm
 
 
 def _apply_group_train(cfg: ArchConfig, gp: dict, h: torch.Tensor, positions: torch.Tensor,
-                       enc_out: torch.Tensor | None) -> tuple:
+                       enc_out: torch.Tensor | None, dist: Dist = NO_DIST) -> tuple:
     """One decoder group over the whole sequence: (h, the group's summed
     auxiliary loss, float32)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -211,8 +213,9 @@ def _apply_group_train(cfg: ArchConfig, gp: dict, h: torch.Tensor, positions: to
             xh = L.apply_norm(cfg, lp["norm_x"], h)
             h = h + L.cross_attention(cfg, lp["xattn"], xh,
                                       *L.encoder_kv(cfg, lp["xattn"], enc_out))
-        h, aux = _apply_ffn(cfg, lp, h, j, aux=True)
+        h, aux = _apply_ffn(cfg, lp, h, j, aux=True, dist=dist)
         aux_total = aux_total + aux
+        h = dist.constrain(h, dist.dp, None, None)
     return h, aux_total
 
 
@@ -227,26 +230,27 @@ def _unstack(tree: dict, n: int) -> list:
     return out
 
 
-def forward_train(cfg: ArchConfig, params: dict, batch: dict) -> tuple:
+def forward_train(cfg: ArchConfig, params: dict, batch: dict, dist: Dist = NO_DIST) -> tuple:
     """-> (final-normed hidden (B, S, d), summed auxiliary loss). ``batch``:
     ``tokens`` (B, S), and M-RoPE ``positions`` (3, B, S) or an
-    encoder-decoder's ``frames`` (B, F, d) where the config has them."""
+    encoder-decoder's ``frames`` (B, F, d) where the config has them; under
+    a mesh, this DP rank's rows of the global batch (``dist``)."""
     _check(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    h = _embed_tokens(cfg, params, tokens)
+    h = dist.constrain(_embed_tokens(cfg, params, tokens), dist.dp, None, None)
     enc_out = _encode(cfg, params, batch["frames"]) if cfg.encdec else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     for gp in _unstack(params["groups"], cfg.n_groups):
         if remat:
-            h, a = checkpoint(_apply_group_train, cfg, gp, h, positions, enc_out,
+            h, a = checkpoint(_apply_group_train, cfg, gp, h, positions, enc_out, dist,
                               use_reentrant=False)
         else:
-            h, a = _apply_group_train(cfg, gp, h, positions, enc_out)
+            h, a = _apply_group_train(cfg, gp, h, positions, enc_out, dist)
         aux = aux + a
     return L.apply_norm(cfg, params["final_norm"], h), aux
 
@@ -262,10 +266,12 @@ def _ce_chunk(cfg: ArchConfig, embed: dict, hb: torch.Tensor, lb: torch.Tensor) 
 
 
 def chunked_ce_loss(cfg: ArchConfig, params: dict, h: torch.Tensor, labels: torch.Tensor,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, dist: Dist = NO_DIST) -> torch.Tensor:
     """Mean cross-entropy over the labels >= 0, by sequence chunks: each
     chunk's float32 logits (B, chunk, vocab) are made, summed and, under
-    autograd, recomputed in the backward rather than held."""
+    autograd, recomputed in the backward rather than held. Under a mesh the
+    rank's sum over the count of every DP rank's labels: the ranks' values
+    sum to the global mean."""
     B, S, _ = h.shape
     chunk = min(chunk, S)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -276,15 +282,17 @@ def chunked_ce_loss(cfg: ArchConfig, params: dict, h: torch.Tensor, labels: torc
                                        use_reentrant=False)
         else:
             total = total + _ce_chunk(cfg, params["embed"], hb, lb)
-    count = (labels >= 0).sum()
+    count = dist.psum((labels >= 0).sum(), "ce_count")
     return total / torch.clamp(count, min=1)
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> tuple:
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, dist: Dist = NO_DIST) -> tuple:
     """(ce + AUX_WEIGHT * aux, {"ce", "aux"}), float32 scalars; ``batch``
-    as :func:`forward_train`'s plus ``labels`` (B, S)."""
-    h, aux = forward_train(cfg, params, batch)
-    ce = chunked_ce_loss(cfg, params, h, batch["labels"])
+    as :func:`forward_train`'s plus ``labels`` (B, S). Under a mesh with
+    several DP ranks each rank's values are its share: their sums over the
+    ranks are the global batch's loss, metrics and gradients."""
+    h, aux = forward_train(cfg, params, batch, dist)
+    ce = chunked_ce_loss(cfg, params, h, batch["labels"], dist=dist)
     return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 

@@ -17,6 +17,10 @@ the port needs no ``ml_dtypes``), so a round trip is exact for every dtype.
 ``save(..., background=True)`` copies every leaf to host memory before it
 returns and writes the files on a thread: the optimizer updates tensors in
 place, so a thread reading them on the device would race it.
+
+Under data parallelism every rank holds the whole state: only the
+coordinator saves (``fault.Supervisor``), and any number of ranks, or one
+process, restores the same files.
 """
 from __future__ import annotations
 

@@ -14,6 +14,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.models.dist import NO_DIST
+
 
 @dataclasses.dataclass
 class StragglerConfig:
@@ -75,7 +77,11 @@ def surviving_mesh_shape(n_hosts_alive: int, chips_per_host: int, model_parallel
 
 
 class Supervisor:
-    """Periodic checkpoints and the step to resume from (one process)."""
+    """Periodic checkpoints and the step to resume from. Under a mesh only
+    the coordinator writes, and every rank waits at a barrier until the
+    checkpoint is on disk; every rank restores (each holds the whole
+    state), so a checkpoint of N ranks resumes on M, or in one process, at
+    its data step."""
 
     def __init__(self, ckpt_dir: str, save_every: int = 50, keep: int = 3):
         from repro_torch.train import checkpoint as ckpt
@@ -89,11 +95,20 @@ class Supervisor:
         s = self.ckpt.latest_step(self.ckpt_dir)
         return 0 if s is None else s
 
-    def maybe_save(self, step: int, tree, extra=None, background: bool = True):
+    def maybe_save(self, step: int, tree, extra=None, background: bool = True,
+                   dist=NO_DIST):
         """Save at every ``save_every``-th step (the host copy before this
-        returns); returns the writing thread, or None."""
-        if step % self.save_every == 0 and step > 0:
-            t = self.ckpt.save(self.ckpt_dir, step, tree, extra, background=background)
+        returns); returns the writing thread, or None. Under a mesh of
+        several ranks (``dist``) the coordinator writes before the barrier
+        that every rank then passes, so no thread outlives it."""
+        if not (step % self.save_every == 0 and step > 0):
+            return None
+        ranks = 1 if dist.mesh is None else dist.mesh.size
+        t = None
+        if dist.is_coordinator:
+            t = self.ckpt.save(self.ckpt_dir, step, tree, extra,
+                               background=background and ranks == 1)
             self.ckpt.prune(self.ckpt_dir, self.keep)
-            return t
-        return None
+        if ranks > 1:
+            dist.barrier()
+        return t

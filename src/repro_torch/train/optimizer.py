@@ -10,6 +10,12 @@ up: layer groups, expert banks) is updated one slice of its leading axis
 at a time, so that the float32 temporaries of one update stay a slice's
 size; every operation but Adafactor's RMS of the whole leaf is elementwise
 or within a slice, so only that sum changes order.
+
+Under data parallelism every rank holds the whole state and updates it
+alike from the reduced gradients. The reference's docstring names a
+``launch.sharding.zero1_specs`` that does not exist: its ZeRO-1 rule is
+``launch.sharding.opt_specs`` (ported: ``repro_torch.launch.sharding``),
+which no trainer applies yet (ROADMAP item 15d).
 """
 from __future__ import annotations
 

@@ -112,7 +112,11 @@ class Fleet:
         """The reference's run_churn (``events`` a fault list, or a
         schedule), cached under ``key``."""
         if key not in self._runs:
-            cs = self.j.engine.init_churn(self.jspec, jax_state(self.j, self.state0), active=active)
+            from torch_jax_core import jitted_service  # the JAX side only
+
+            with jitted_service():  # tests/torch_jax_core.py: boot-time faults jitted
+                cs = self.j.engine.init_churn(self.jspec, jax_state(self.j, self.state0),
+                                              active=active)
             sched = (events if isinstance(events, self.j.faults.FaultSchedule) or events is None
                      else schedule(self.j.faults, len(GUESTS), events))
             cs, series = self.j.engine.run_churn(self.jspec, cs, self.traces[branch],
@@ -284,7 +288,10 @@ def test_lanes_inactive_at_boot_match_reference(fleet, j):
     """init_churn reclaims lanes marked inactive (their payload wiped), and a
     later restart boots them with a fresh identity mapping."""
     active = np.array([True, False, True, False])
-    jcs = j.engine.init_churn(fleet.jspec, jax_state(j, fleet.state0), active=active)
+    from torch_jax_core import jitted_service  # the JAX side only
+
+    with jitted_service():  # tests/torch_jax_core.py
+        jcs = j.engine.init_churn(fleet.jspec, jax_state(j, fleet.state0), active=active)
     cs = engine.init_churn(fleet.spec, interop.state_from_numpy(fleet.state0, device="cpu"),
                            active=active, device="cpu")
     same_tree(jax_churn_to_numpy(jcs), interop.churn_to_numpy(cs))

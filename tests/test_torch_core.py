@@ -112,7 +112,7 @@ class World:
         st = jit(jasp.record_accesses, 0)(self.jcfg, st, self.batch)
         self.s1 = to_numpy(st)
         # the next GPAC pass's batches
-        hot = jtel.hot_mask_ipt(self.jcfg, st)
+        hot = jit(jtel.hot_mask_ipt, 0)(self.jcfg, st)
         self.batches = np.array(jit(jfilter.select_batches_ragged, 0, 3)(
             self.jspec, st, hot, MAX_BATCHES))
 
@@ -138,11 +138,11 @@ def test_config_validation_matches():
 
 
 def test_init_state_with_fill_and_start_all_far(w):
-    jst = jtypes.init_state(w.jcfg, jnp.asarray(w.fill))
+    jst = jit(jtypes.init_state, 0)(w.jcfg, jnp.asarray(w.fill))
     st = types.init_state(w.cfg, torch.from_numpy(w.fill), device="cpu")
     same_state(jst, st)
     same_state(jit(jtypes.start_all_far, 0)(w.jcfg, jst), types.start_all_far(w.cfg, st))
-    same(jtypes.allocated_hp_mask(w.jcfg, jst), types.allocated_hp_mask(w.cfg, st))
+    same(jit(jtypes.allocated_hp_mask, 0)(w.jcfg, jst), types.allocated_hp_mask(w.cfg, st))
 
 
 # ---- address_space ---------------------------------------------------------
@@ -199,7 +199,7 @@ def test_hot_masks(w):
     (pebs in jax's default threefry layout, which the port's pebs draws
     in)."""
     for backend in ("ipt", "damon"):
-        jhot = jtel.hot_mask(w.jcfg, jax_state(w.s1), backend)
+        jhot = jit(jtel.hot_mask, 0, 2)(w.jcfg, jax_state(w.s1), backend)
         hot = tel.hot_mask(w.cfg, port_state(w.s1), backend)
         same(jhot, hot, backend)
         same(jit(jtel.hot_subpages_per_hp, 0)(w.jcfg, jax_state(w.s1), jhot),

@@ -32,11 +32,16 @@ def _port(name, *args):
 
 
 def _jax(name, backend, *args):
+    import jax
     import jax.numpy as jnp
     from repro.kernels import registry as jreg
 
-    jargs = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
-    out = jreg.dispatch(name, backend, *jargs)
+    def call(*arrays):  # jitted: eager JAX compiles each primitive on first use
+        it = iter(arrays)
+        return jreg.dispatch(name, backend, *(next(it) if isinstance(a, np.ndarray) else a
+                                              for a in args))
+
+    out = jax.jit(call)(*(jnp.asarray(a) for a in args if isinstance(a, np.ndarray)))
     out = out if isinstance(out, (tuple, list)) else (out,)
     return [np.asarray(o) for o in out]
 

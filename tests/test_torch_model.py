@@ -111,8 +111,10 @@ def _flatten(tree, prefix=()):
 
 def test_unported_families_raise():
     """What is still not ported raises, citing its ROADMAP item: the
-    unrolled lowering (the dry-run's; in serving and in training) and the
-    training meshes (``launch.train --mesh single|multi``)."""
+    unrolled lowering (the dry-run's; in serving and in training). The
+    training meshes (``launch.train --mesh single|multi``) are ported: in a
+    job of one rank they refuse the production mesh's 256 or 512 ranks,
+    naming both counts."""
     from repro_torch.launch import train as launch_train
 
     cfg = configs.reduced("qwen2-0.5b")
@@ -128,8 +130,8 @@ def test_unported_families_raise():
             T.forward_train(bad, {}, batch)
         with pytest.raises(NotImplementedError, match="item 17"):
             registry.build(bad).loss_fn({}, batch)
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="item 15c"):
+    for mesh, ranks in (("single", 256), ("multi", 512)):
+        with pytest.raises(ValueError, match=f"needs {ranks} ranks; this job has 1 "):
             launch_train.main(["--reduced", "--device", "cpu", "--mesh", mesh])
 
 

@@ -163,7 +163,8 @@ def test_window_step_and_batched_maintenance(ragged, single):
                           policy="autonuma", budget=5)
     same_tree(np_state(jst), np_state(st))
     # two symmetric guests over the single config's space, after one window
-    jst = jgpac.gpac_maintenance_batched(cfg_j, jst, "ipt", 3, 4, 2, 500, 40)
+    jst = jax.jit(jgpac.gpac_maintenance_batched, static_argnums=(0, 2, 3, 4, 5, 6, 7))(
+        cfg_j, jst, "ipt", 3, 4, 2, 500, 40)
     st = gpac.gpac_maintenance_batched(cfg, st, "ipt", 3, 4, 2, 500, 40)
     same_tree(np_state(jst), np_state(st))
     assert int(st.stats["consolidated_pages"]) > 0
@@ -227,19 +228,24 @@ def test_select_batches_per_guest_and_multi_consolidation(multi):
     counts[::5] = np.random.default_rng(2).integers(1, 9, counts[::5].shape)
     state1 = dict(np_state(st0), guest_counts=counts)
     jst, st = jax_state(state1), port_state(state1)
-    jhot, hot = jtel.hot_mask(jmg.cfg, jst, "ipt"), telemetry.hot_mask(mg.cfg, st, "ipt")
+    # the reference's integer functions jitted (eager, each primitive compiles on first use)
+    jhot = jax.jit(jtel.hot_mask, static_argnums=(0, 2))(jmg.cfg, jst, "ipt")
+    hot = telemetry.hot_mask(mg.cfg, st, "ipt")
     same(jhot, hot, "hot")
-    jb = jfilter.select_batches_per_guest(jmg.cfg, jst, jhot, 3, 5, 3, MG["logical_per_guest"])
+    jb = jax.jit(jfilter.select_batches_per_guest, static_argnums=(0, 3, 4, 5, 6))(
+        jmg.cfg, jst, jhot, 3, 5, 3, MG["logical_per_guest"])
     b = pfilter.select_batches_per_guest(mg.cfg, st, hot, 3, 5, 3, MG["logical_per_guest"])
     same(jb, b, "batches")
     assert (b >= 0).sum() > 0
     with pytest.raises(ValueError, match="tile"):
         pfilter.select_batches_per_guest(mg.cfg, st, hot, 3, 5, 2, 100)
     hpg = mg.hp_per_guest
-    jst1 = jcons.consolidate_pages_multi(jmg.cfg, jst, jb[:, 0], hpg)
+    jst1 = jax.jit(jcons.consolidate_pages_multi, static_argnums=(0, 3))(
+        jmg.cfg, jst, jb[:, 0], hpg)
     st1 = cons.consolidate_pages_multi(mg.cfg, st, b[:, 0].clone(), hpg)
     same_tree(np_state(jst1), np_state(st1))
-    jst2 = jcons.consolidate_batches_multi(jmg.cfg, jst1, jb, hpg)
+    jst2 = jax.jit(jcons.consolidate_batches_multi, static_argnums=(0, 3))(
+        jmg.cfg, jst1, jb, hpg)
     st2 = cons.consolidate_batches_multi(mg.cfg, st1, b, hpg)
     same_tree(np_state(jst2), np_state(st2))
     assert int(st2.stats["consolidated_pages"]) > 0

@@ -26,6 +26,7 @@ from repro_torch.core import engine, faults  # noqa: E402
 from repro_torch.serve import engine as serve  # noqa: E402
 from repro_torch.serve import scheduler  # noqa: E402
 from test_torch_churn import jax_churn_to_numpy, same_tree  # noqa: E402
+from torch_jax_core import jitted_service  # noqa: E402  (the reference's eager parts, jitted)
 
 P = bool(jax.config.jax_threefry_partitionable)
 GUESTS = (  # (n_logical, cl, workload)
@@ -132,8 +133,10 @@ def service_script(svc, n_near: int) -> list:
 
 
 def test_tiering_service_matches_reference():
-    jspec = build(jengine)
-    ref = service_script(jserve.TieringService(jspec, accesses_per_window=APW), jspec.cfg.n_near)
+    with jitted_service():  # tests/torch_jax_core.py
+        jspec = build(jengine)
+        ref = service_script(jserve.TieringService(jspec, accesses_per_window=APW),
+                             jspec.cfg.n_near)
     spec = build(engine, device="cpu")
     svc = serve.TieringService(spec, accesses_per_window=APW, partitionable=P, device="cpu")
     got = service_script(svc, spec.cfg.n_near)

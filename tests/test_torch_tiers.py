@@ -11,6 +11,7 @@ included, must be identical, dtypes included. The JAX runs are computed once
 and shared.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from repro.core import tiers as jtiers  # noqa: E402
 from repro.core import types as jtypes  # noqa: E402
 from repro.serve import engine as jserve  # noqa: E402
 from repro_torch import interop  # noqa: E402
+from torch_jax_core import jitted_service  # noqa: E402  (the reference's eager parts, jitted)
 from repro_torch.core import engine, faults, tiering, tiers, types  # noqa: E402
 from repro_torch.serve import engine as serve  # noqa: E402
 
@@ -103,11 +105,17 @@ def build_pair(specs=SPECS, host=HOST):
     return jspec, spec, jstate_np(st)
 
 
+@functools.lru_cache(maxsize=None)
+def default_pair():
+    """``build_pair()`` at the default specs, built once and shared."""
+    return build_pair()
+
+
 class _Ref:
     """JAX runs over the 3-tier fleet, computed once and shared."""
 
     def __init__(self):
-        self.jspec, self.spec, self.s0 = build_pair()
+        self.jspec, self.spec, self.s0 = default_pair()
         self.traces = jengine.guest_traces(self.jspec, N_WINDOWS, APW)
         self._runs = {}
         self.ticked = _ticked_state(self)
@@ -234,9 +242,11 @@ def test_pressure_cascade_with_a_full_middle_tier(ref):
     (a tensor and a host int) and at its size (the no-sync skip)."""
     s = ref.ticked
     cfg, tv = ref.jspec.cfg, ref.jspec.tiers
-    jst = jtiering.tick(cfg, jstate(s), "memtierd", tiers=tv)
+    # jitted (the tick is integer arithmetic): eager JAX dispatches it op by op
+    jst = jax.jit(jtiering.tick, static_argnums=(0, 2), static_argnames=("tiers",))(
+        cfg, jstate(s), "memtierd", tiers=tv)
     s = jstate_np(jst)
-    alloc = np.asarray(jengine.allocated_hp_mask(cfg, jst))
+    alloc = np.asarray(jax.jit(jengine.allocated_hp_mask, static_argnums=0)(cfg, jst))
     mid = (s["block_table"] >= 4) & (s["block_table"] < 16)
     assert (alloc & mid).sum() == 12  # full: usage 12 > cap 11
     jcascade = jax.jit(jtiers.pressure_cascade, static_argnums=(0, 2))
@@ -266,7 +276,7 @@ def test_run_with_tco_matches_reference(ref, policy):
 def test_tco_metrics_and_count_delta():
     """Called eagerly, tco_metrics rounds every product and sum, as eager
     JAX does; tier_count_delta's swap rounds."""
-    jspec, spec, _ = build_pair()
+    jspec, spec, _ = default_pair()
     rng = np.random.default_rng(0)
     for _ in range(50):
         blocks = rng.integers(0, 3000, size=3).astype(np.int32)
@@ -292,7 +302,7 @@ def test_tco_metrics_and_count_delta():
 def test_run_churn_with_tiers_under_a_shrink():
     """The churn engine with tiers over a SynthTrace: a crash, a shrink of
     tier 0 at window 2 that drives the cascade, its grow-back, a restart."""
-    jspec, spec, s0 = build_pair()
+    jspec, spec, s0 = default_pair()
     fs = [("crash", 1, 2), ("shrink", 2, 1), ("shrink", 4, jspec.cfg.n_near),
           ("restart", 4, 2)]
     jsched, sched = jfaults.FaultSchedule(3), faults.FaultSchedule(3)
@@ -317,8 +327,9 @@ def test_tiering_service_with_tiers():
     """TieringService over the 3-tier fleet: four tenants (floors 0, 1, 2
     and one above the deepest tier) into three lanes, a departure, a
     shrink; stats() after every tick."""
-    jspec, spec, _ = build_pair()
-    jsvc = jserve.TieringService(jspec, accesses_per_window=96, policy="hybridtier")
+    jspec, spec, _ = default_pair()
+    with jitted_service():  # tests/torch_jax_core.py
+        jsvc = jserve.TieringService(jspec, accesses_per_window=96, policy="hybridtier")
     svc = serve.TieringService(spec, accesses_per_window=96, policy="hybridtier",
                                partitionable=P, device="cpu")
     for t, floor in enumerate((0, 1, 2, 5)):
@@ -329,7 +340,9 @@ def test_tiering_service_with_tiers():
             jsvc.depart(1), svc.depart(1)
         if tick == 3:
             jsvc.set_near_cap(1), svc.set_near_cap(1)
-        jout, out = jsvc.tick(), svc.tick()
+        with jitted_service():
+            jout = jsvc.tick()
+        out = svc.tick()
         same_tree({k: np.asarray(v) for k, v in jout.items()}, out, f"tick {tick} ")
         assert svc.stats() == jsvc.stats(), tick
     assert {t["tier_floor"] for t in svc.stats()["tenants"].values()} == {0, 1, 2}

@@ -235,7 +235,7 @@ def linear_models(model, jmodel, grads: list):
         G = jax.tree.map(lambda *x: jnp.stack(x)[mb["idx"][0]], *jg)
         return sum(jnp.sum(a * b) for a, b in zip(jax.tree.leaves(p), jax.tree.leaves(G))), {}
 
-    def loss(p, mb):
+    def loss(p, mb, dist=None):
         G = tg[int(mb["idx"][0])]
         return sum(torch.sum(a * b) for a, b in zip(tr.leaves(p), tr.leaves(G))), {}
 
