@@ -184,7 +184,21 @@ first use), then, printing one JSON line per phase:
    tokens/s, peak GB a rank, the drops and the collective bytes and calls
    per site a step are on its line.
 
-The phases run in the order 1-5, 11, 12, 6, 7, 13-17, 8-10, 18, 19, 20. An engine
+21. contracts -- DESIGN.md §15's ten invariant contracts
+   (``repro_torch.contracts``) on the card with ``kernel_backend="auto"``,
+   each over ``fallback_draws()`` and its ``max_examples`` draws (173 in
+   all) from a seeded numpy generator over the reference harness's ranges
+   (1-3 ragged guests, hp_ratio 4 or 8, 3-5 windows of 8-32 accesses,
+   non-dividing chunk sizes, both sources and host paths, the three
+   builtin policies): runs, sharded runs on a one-rank NCCL mesh and churn
+   runs bit for bit, the arbitration tie-break, the 2-tier special case,
+   the pressure controller's bounds, the kernels against their plain
+   versions (K1-K4 must launch), and INV-MULTIHOST-EXACT's 2-rank job over
+   gloo on this card; one line per contract with its draws, seconds and
+   launches by name, and a failing draw printed before the script stops.
+
+The phases run in the order 1-5, 11, 12, 6, 7, 13-17, the two sharded
+phases, 21, 8-10, 18, 19, 20. An engine
 kernel row's ``launches`` counts the engine's main path (the memtierd run);
 ``launches_by_path`` adds the churn, reference, engine_synth, churn_synth,
 service, pebs, ntier (the first policy's kernel run, hybridtier),
@@ -213,9 +227,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, contracts  # noqa: E402
+from repro_torch.contracts.draws import ContractDraw, GuestDraw, fallback_draws  # noqa: E402
 from repro_torch.core import address_space as asp  # noqa: E402
-from repro_torch.core import engine, faults, filter as pfilter, sharding, telemetry, tiers  # noqa: E402
+from repro_torch.core import engine, faults, filter as pfilter, sharding, telemetry, tiering, tiers  # noqa: E402
 from repro_torch.data import pipeline, prng, traces  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.consolidate import consolidate_region, scatter_region  # noqa: E402
@@ -1657,6 +1672,82 @@ def sharded_ranks_phase(device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 21. contracts: DESIGN.md §15's invariants through the hand kernels
+# --------------------------------------------------------------------------
+CONTRACT_SEED = 0
+# the reference harness's ranges (tests/strategies.py: guest_draws,
+# contract_draws), sampled here with numpy: this script imports nothing of
+# the JAX package
+CONTRACT_WORKLOADS = ("redis", "masim", "liblinear", "hash")
+
+
+def contract_draw(rng: np.random.Generator) -> ContractDraw:
+    """One point of the contracts' parameter space: 1-3 ragged guests,
+    ``hp_ratio`` 4 or 8, 3-5 windows of 8-32 accesses, a chunk size in
+    ``[2, n_windows]`` (dividing or not), either source and host path, any
+    builtin policy, the pressure knobs and a telemetry seed."""
+    hp_ratio = int(rng.choice([4, 8]))
+    guests = tuple(
+        GuestDraw(n_logical=int(rng.integers(hp_ratio, 4 * hp_ratio + 1)),
+                  cl=None if rng.random() < 0.5 else int(rng.integers(1, hp_ratio + 1)),
+                  gpa_slack=float(rng.choice([0.25, 0.5])),
+                  workload=str(rng.choice(CONTRACT_WORKLOADS)),
+                  seed=int(rng.integers(0, 6)))
+        for _ in range(int(rng.integers(1, 4))))
+    n_windows = int(rng.integers(3, 6))
+    return ContractDraw(
+        guests=guests, hp_ratio=hp_ratio,
+        near_fraction=float(rng.choice([0.25, 0.5])),
+        host_cl=int(rng.integers(1, hp_ratio + 1)),
+        policy=str(rng.choice(tiering.POLICIES)),
+        use_gpac=bool(rng.random() < 0.5), synth=bool(rng.random() < 0.5),
+        n_windows=n_windows, accesses_per_window=int(rng.integers(8, 33)),
+        windows_per_step=int(rng.integers(2, n_windows + 1)),
+        host_sharded=bool(rng.random() < 0.5), cap=int(rng.integers(0, 7)),
+        budget=int(rng.integers(1, 9)), slack=int(rng.integers(0, 3)),
+        seed=int(rng.integers(0, 1024)))
+
+
+def contracts_phase(device) -> dict:
+    """Every registered contract on the card with ``kernel_backend="auto"``
+    (the hand kernels) over ``fallback_draws()`` and its ``max_examples``
+    draws from ``contract_draw``; one line per contract with its draws,
+    seconds and kernel launches by name. INV-MULTIHOST-EXACT starts its
+    2-rank job once, over gloo on this card. A failing draw is printed and
+    raises."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(CONTRACT_SEED)
+    summary = {}
+    for c in contracts.all_contracts():
+        todo = list(fallback_draws()) + [contract_draw(rng) for _ in range(c.max_examples)]
+        registry.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, draw in enumerate(todo):
+            try:
+                c.check_fn(draw, device=device)
+            except Exception:
+                emit(dict(phase="contracts", contract=c.name, failed_draw=i,
+                          draw=dataclasses.asdict(draw)))
+                raise
+        torch.cuda.synchronize()
+        line = dict(phase="contracts", contract=c.name, draws=len(todo),
+                    seconds=time.perf_counter() - t0, launches=registry.launch_counts())
+        emit(line)
+        summary[c.name] = line
+    if torch.distributed.is_initialized():  # the contracts' one-rank mesh
+        torch.distributed.destroy_process_group()
+    backend_launches = summary["INV-KERNEL-BACKEND-EXACT"]["launches"]
+    missing = [k for k in ENGINE_KERNELS if not backend_launches[k]]
+    if missing:
+        raise AssertionError(f"contracts: kernel_backend='auto' never launched {missing}")
+    return dict(phase="contracts", seed=CONTRACT_SEED, contracts=len(summary),
+                draws=sum(v["draws"] for v in summary.values()),
+                seconds_by_contract={k: v["seconds"] for k, v in summary.items()},
+                passed=True, seconds=time.perf_counter() - t_phase)
+
+
+# --------------------------------------------------------------------------
 # 8. serving: qwen2-0.5b at full width over the GPAC-tiered paged KV cache
 # --------------------------------------------------------------------------
 SERVE = dict(max_seqs=8, max_seq_len=2048, page_size=16, pages_per_block=4,
@@ -2858,6 +2949,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     emit(sharded_ranks_phase(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(contracts_phase(device))
     gc.collect()
     torch.cuda.empty_cache()
     for row in kernel_rows:

@@ -23,6 +23,9 @@ import torch
 from repro_torch.core.telemetry import _popcount_u8
 from repro_torch.core.types import GpacConfig, TieredState, allocated_hp_mask
 
+# the builtin near/far policies, the ones the invariant contracts range
+# over (the live set is policies())
+POLICIES = ("memtierd", "autonuma", "tpp")
 NEG = -(2**31) + 1
 
 _POLICIES: dict[str, Callable] = {}
