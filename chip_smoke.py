@@ -196,9 +196,25 @@ first use), then, printing one JSON line per phase:
    versions (K1-K4 must launch), and INV-MULTIHOST-EXACT's 2-rank job over
    gloo on this card; one line per contract with its draws, seconds and
    launches by name, and a failing draw printed before the script stops.
+22. dryrun -- item 17, the dry run and the roofline: (a) ``python -m
+   repro_torch.launch.dryrun`` in subprocesses for qwen2-0.5b train_4k and
+   qwen2-moe-a2.7b decode_32k at full size on the 256-rank single-pod mesh
+   (fake process group, DTensor layouts, fake tensors): both records must
+   be ``ok`` with 6ND over the counted FLOPs in (0, 1.05]; each line gives
+   a rank's bytes, FLOPs, eager bytes, collectives by kind, trace seconds,
+   the H100 roofline row and whether arguments + temps fit the card's
+   memory (a finding, not a check); (b) qwen2-0.5b's train step at 2 x
+   4,096 tokens counted on a one-rank mesh (``--dryrun-count``, a
+   subprocess) and run on the card: argument bytes equal, the compute term
+   at most 1.05 x the measured step, the predicted peak against
+   ``max_memory_allocated``; (c) a 32,768-token prefill of qwen2-0.5b,
+   scanned attention against unrolled with causal skip (seconds, peak GB,
+   logits within UNROLL_LOGIT_RTOL), reduced float32 opt prefill and step
+   card against CPU, and one opt train step at 2 x 4,096 whose loss is
+   within UNROLL_LOSS_RTOL of the baseline's.
 
 The phases run in the order 1-5, 11, 12, 6, 7, 13-17, the two sharded
-phases, 21, 8-10, 18, 19, 20. An engine
+phases, 21, 8-10, 18, 19, 20, 22. An engine
 kernel row's ``launches`` counts the engine's main path (the memtierd run);
 ``launches_by_path`` adds the churn, reference, engine_synth, churn_synth,
 service, pebs, ntier (the first policy's kernel run, hybridtier),
@@ -215,6 +231,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -1807,8 +1824,8 @@ class FirstStepProbe:
     def __enter__(self):
         self._route, self._dispatch = moe.route, registry.dispatch
 
-        def route(cfg, p, xt):
-            weights, experts = self._route(cfg, p, xt)
+        def route(cfg, p, xt, *dist):
+            weights, experts = self._route(cfg, p, xt, *dist)
             self.routes.append(experts.clone())
             return weights, experts
 
@@ -2880,6 +2897,242 @@ def train_dp_phase(device, kept: dict) -> dict:
                 ranks_bit_identical=True, seconds=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------------------------
+# 22. dryrun: the dry run and the roofline on the H100's constants
+# --------------------------------------------------------------------------
+DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 300
+# (b): qwen2-0.5b's train step at a size that fits one card, counted on a
+# one-rank mesh and run for real; 1 untimed step, then COUNT_TIMED
+COUNT_BATCH, COUNT_SEQ, COUNT_TIMED = 2, 4096, 3
+COMPUTE_SLACK = 1.05  # the compute term may exceed the measured step by no more
+# (c): prefill_32k's length, one sequence, baseline (scanned) against opt
+# (unrolled, causal skip). The opt run rounds each score and each softmax
+# weight to bf16 (2^-9 relative) where the baseline keeps float32: the last
+# position's logits within UNROLL_LOGIT_RTOL of their largest; its train
+# step's loss within UNROLL_LOSS_RTOL (the CPU tests' BF16_LOSS_RTOL) of the
+# baseline step's from the same params and batch; reduced float32, card
+# against CPU, the CPU tests' float32 tolerances (CARD_CPU_*_RTOL)
+PREFILL_SEQ, UNROLL_LOGIT_RTOL, UNROLL_LOSS_RTOL = 32_768, 5e-2, 1e-3
+UNROLL_CPU_SEQ = 1_100  # three query chunks, the last one padded
+
+
+def dryrun_count_worker(out_path: str) -> None:
+    """(b)'s count in a process of its own (the fake process group is per
+    process): qwen2-0.5b's train step at COUNT_BATCH x COUNT_SEQ, the
+    recipe the dry run gives it, traced on a one-rank mesh."""
+    from repro_torch.configs.base import SHAPE_SPECS
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+
+    dryrun.init_fake_world(1)
+    SHAPE_SPECS["smoke_train"] = dict(seq_len=COUNT_SEQ, global_batch=COUNT_BATCH, kind="train")
+    rec = dryrun.lower_stats("qwen2-0.5b", "smoke_train", mesh_lib.spmd_mesh(1, 1), unroll=False)
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def _finish(proc, log: pathlib.Path, what: str) -> None:
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}: {log.read_text()[-3000:]}")
+
+
+def _timed_steps(step, params, state, batch, n: int) -> tuple:
+    """n + 1 steps on one batch, the first untimed: (params, state, the
+    losses, the timed seconds), each step synced as the train phase's."""
+    losses, secs = [], []
+    for i in range(n + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, mets = step(params, state, batch)
+        losses.append(float(mets["loss"]))  # syncs
+        if i:
+            secs.append(time.perf_counter() - t)
+    return params, state, losses, secs
+
+
+def unroll_card_vs_cpu(device) -> dict:
+    """Reduced qwen2-0.5b in float32 with the opt flags: prefill logits and
+    one loss-and-gradient step on the card against the CPU."""
+    cfg = configs.reduced("qwen2-0.5b").replace(dtype=torch.float32, unroll=True,
+                                                causal_skip=True)
+    model = model_registry.build(cfg)
+    params = model.init(seed=1, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, UNROLL_CPU_SEQ)).astype(np.int32))
+    card_params = tr.map(lambda v: v.to(device), params)
+    with torch.no_grad():
+        cpu_log = model.prefill(params, {"tokens": toks})[0]
+        card_log = model.prefill(card_params, {"tokens": toks.to(device)})[0].cpu()
+    logit_diff = float((card_log - cpu_log).abs().max() / cpu_log.abs().max())
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    cpu = trainer._grads(model, params, batch)
+    card = trainer._grads(model, card_params, {k: v.to(device) for k, v in batch.items()})
+    loss_diff = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    grad_diff = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                    for (_, g), (_, w) in zip(tr.items(card[2]), tr.items(cpu[2])))
+    if not (logit_diff <= CARD_CPU_LOSS_RTOL and loss_diff <= CARD_CPU_LOSS_RTOL
+            and grad_diff <= CARD_CPU_GRAD_RTOL):
+        raise AssertionError(f"reduced opt run, card against CPU: logits {logit_diff}, "
+                             f"loss {loss_diff}, gradients {grad_diff}")
+    return dict(seq=UNROLL_CPU_SEQ, logits_rel_diff=logit_diff, loss_rel_diff=loss_diff,
+                grad_max_rel_diff=grad_diff, rtol=CARD_CPU_LOSS_RTOL,
+                grad_rtol=CARD_CPU_GRAD_RTOL)
+
+
+def dryrun_phase(device) -> dict:
+    """(a) the dry run of two full-size cells on the 256-rank single-pod
+    mesh (subprocesses, meanwhile the card works), checked and put on the
+    H100's roofline; (b) qwen2-0.5b's step at COUNT_BATCH x COUNT_SEQ
+    counted on a one-rank mesh (a subprocess) and run on the card; (c) the
+    unrolled, causal-skip attention at PREFILL_SEQ against the scanned one."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis as roofline
+
+    t0 = time.perf_counter()
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = DRYRUN_DIR / f"{arch}__{shape}.log"
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", "single", "--out", str(DRYRUN_DIR)], cwd=ROOT, env=env,
+            stdout=log.open("w"), stderr=subprocess.STDOUT), log, f"dry run {arch} {shape}"))
+    count_path, log = DRYRUN_DIR / "count.json", DRYRUN_DIR / "count.log"
+    procs.append((subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-count", str(count_path)],
+        cwd=ROOT, env=env, stdout=log.open("w"), stderr=subprocess.STDOUT), log, "count"))
+
+    # (b) the counted step, run on the card
+    cfg = configs.get("qwen2-0.5b")
+    model = model_registry.build(cfg)
+    tcfg = dryrun.train_cfg_for("qwen2-0.5b")
+    spec = pipeline.DataSpec(vocab=cfg.vocab, seq_len=COUNT_SEQ, global_batch=COUNT_BATCH)
+    batch = trainer.batch_to(pipeline.next_batch(spec, pipeline.DataState())[0], device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=device)
+    state = trainer.init_train_state(tcfg, params)
+    arg_bytes = _nbytes(*tr.leaves(params), *tr.leaves(state), *batch.values())
+    params, state, losses, secs = _timed_steps(trainer.make_train_step(model, tcfg), params,
+                                               state, batch, COUNT_TIMED)
+    peak = torch.cuda.max_memory_allocated() - held
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) prefill at PREFILL_SEQ, baseline and opt, from the same params
+    params = model.init(seed=0, device=device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, PREFILL_SEQ)).astype(np.int32)).to(device)
+    prefill = {}
+    variants = (("baseline", cfg), ("opt", cfg.replace(unroll=True, causal_skip=True)))
+    for name, vcfg in variants:
+        vm = model_registry.build(vcfg)
+        with torch.no_grad():
+            vm.prefill(params, {"tokens": toks[:, :1024]})  # warm up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            logits = vm.prefill(params, {"tokens": toks})[0]
+            torch.cuda.synchronize()
+            prefill[name] = dict(s=time.perf_counter() - t, logits=logits.float().cpu(),
+                                 peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    base_log, opt_log = prefill["baseline"].pop("logits"), prefill["opt"].pop("logits")
+    if not (torch.isfinite(opt_log).all() and torch.isfinite(base_log).all()):
+        raise AssertionError("a 32k prefill gave non-finite logits")
+    logit_diff = float((opt_log - base_log).abs().max() / base_log.abs().max())
+    if not logit_diff <= UNROLL_LOGIT_RTOL:
+        raise AssertionError(f"opt prefill at {PREFILL_SEQ}: logits {logit_diff} of the largest "
+                             f"from the baseline's (tolerance {UNROLL_LOGIT_RTOL})")
+    same_top = bool(opt_log.argmax(-1).eq(base_log.argmax(-1)).all())
+    cpu_check = unroll_card_vs_cpu(device)
+    # one opt train step at COUNT_BATCH x COUNT_SEQ from the same params and batch
+    om = model_registry.build(variants[1][1])
+    params = om.init(seed=0, device=device)
+    state = trainer.init_train_state(tcfg, params)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, _, mets = trainer.make_train_step(om, tcfg)(params, state, batch)
+    opt_loss = float(mets["loss"])
+    opt_step_s = time.perf_counter() - t
+    del params, state, mets
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_diff = abs(opt_loss - losses[0]) / abs(losses[0])
+    if not (np.isfinite(opt_loss) and loss_diff <= UNROLL_LOSS_RTOL):
+        raise AssertionError(f"opt train step loss {opt_loss} against the baseline's {losses[0]}")
+
+    for proc, log, what in procs:
+        _finish(proc, log, what)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        with open(DRYRUN_DIR / f"{arch}__{shape}__single.json") as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} {shape}: {rec.get('error')}")
+        row = roofline.analyze_cell(rec)
+        if not 0 < row["useful_flops_ratio"] <= 1.05:
+            raise AssertionError(f"dry run {arch} {shape}: 6ND over the counted FLOPs is "
+                                 f"{row['useful_flops_ratio']}")
+        mem = rec["memory_analysis"]
+        per_dev = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        cells.append(dict(
+            arch=arch, shape=shape, n_devices=rec["n_devices"], memory=mem,
+            flops_per_device=rec["cost_analysis"]["flops"],
+            bytes_per_device=rec["cost_analysis"]["bytes accessed"],
+            collectives=rec["collectives"], build_s=rec["lower_s"], trace_s=rec["compile_s"],
+            roofline={k: row[k] for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s", "dominant", "step_lower_bound_s",
+                "useful_flops_ratio", "roofline_fraction", "collective_bytes_per_device")},
+            per_device_bytes=per_dev, card_bytes=total_mem,
+            fits="fits" if per_dev <= total_mem else "does not fit"))
+
+    # (b) the count against the card
+    with open(count_path) as f:
+        count = json.load(f)
+    pred_args = count["memory_analysis"]["argument_size_in_bytes"]
+    if pred_args != arg_bytes:
+        raise AssertionError(f"counted argument bytes {pred_args} against the card's {arg_bytes}")
+    flops, nbytes = count["cost_analysis"]["flops"], count["cost_analysis"]["bytes accessed"]
+    t_compute, t_memory = flops / roofline.PEAK_FLOPS, nbytes / roofline.HBM_BW
+    measured = statistics.median(secs)
+    if t_compute > COMPUTE_SLACK * measured:
+        raise AssertionError(f"compute term {t_compute} s exceeds the measured step {measured} s")
+    pred_peak = pred_args + count["memory_analysis"]["temp_size_in_bytes"]
+    return dict(
+        phase="dryrun", cells=cells,
+        count=dict(arch="qwen2-0.5b", batch=COUNT_BATCH, seq_len=COUNT_SEQ, mesh="1 rank",
+                   trace_s=count["compile_s"], argument_bytes=pred_args,
+                   card_argument_bytes=arg_bytes, flops=flops, bytes_accessed=nbytes,
+                   predicted_peak_bytes=pred_peak, card_peak_bytes=peak,
+                   peak_ratio=pred_peak / peak, t_compute_s=t_compute, t_memory_s=t_memory,
+                   bound_s=max(t_compute, t_memory), measured_s=measured, step_s_all=secs,
+                   losses=losses, compute_fraction=t_compute / measured,
+                   bound_fraction=max(t_compute, t_memory) / measured),
+        unroll=dict(seq_len=PREFILL_SEQ, prefill=prefill,
+                    speedup=prefill["baseline"]["s"] / prefill["opt"]["s"],
+                    logits_rel_diff=logit_diff, logit_rtol=UNROLL_LOGIT_RTOL,
+                    same_top_token=same_top, card_vs_cpu=cpu_check,
+                    opt_step=dict(loss=opt_loss, baseline_loss=losses[0], rel_diff=loss_diff,
+                                  rtol=UNROLL_LOSS_RTOL, s_with_warmup=opt_step_s)),
+        seconds=time.perf_counter() - t0)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device, _ = device_phase()
@@ -2997,6 +3250,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     emit(train_dp_phase(device, kept))
     del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dryrun_phase(device))
     rows = kernel_rows + serve_rows + registry_rows + family_rows
     # the launch floor: this run's time of K2 on the serve path's 1,632 bytes
     floor = next(r["ms"] for r in serve_rows if r["name"] == "hot_count")
@@ -3014,5 +3270,7 @@ if __name__ == "__main__":
         sharded_rank_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--train-dp-rank"]:
         train_dp_rank_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--dryrun-count"]:
+        dryrun_count_worker(sys.argv[2])
     else:
         main()

@@ -18,6 +18,11 @@ process group. Two families:
   ``make_production_mesh`` asks for ``DEFAULT_DATA x DEFAULT_MODEL`` (x
   ``DEFAULT_PODS``) ranks, read when it is called: 256 or 512, a pod's
   worth, and a job of another size is refused.
+* :func:`spmd_mesh` / :func:`make_production_spmd_mesh` -- the same
+  geometry as a ``torch.distributed`` ``DeviceMesh`` with the reference's
+  axis names (:class:`SpmdMesh`), over which the dry run lays its tensors
+  out as DTensors (the reference's ``jax.make_mesh``). It needs a default
+  process group of the mesh's size: the dry run's fake one.
 """
 from __future__ import annotations
 
@@ -128,6 +133,47 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The production geometry as a thin :func:`train_mesh` special case."""
     return train_mesh(DEFAULT_DATA, DEFAULT_MODEL,
                       pods=DEFAULT_PODS if multi_pod else None, device=device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpmdMesh:
+    """A global-view mesh: axis names and sizes over a ``DeviceMesh``. Under
+    it ``models.dist.Dist`` constrains DTensors and issues no collective of
+    its own (``Dist.spmd``)."""
+
+    axis_names: tuple
+    shape: dict
+    device_mesh: object
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def spmd_mesh(data: int = DEFAULT_DATA, model: int = DEFAULT_MODEL,
+              pods: int | None = None) -> SpmdMesh:
+    """:func:`train_mesh`'s geometry as an :class:`SpmdMesh` over the
+    first ranks of the default process group (512 fake ranks back both
+    production meshes). A ``cpu`` mesh: the dry run's tensors are fake ones
+    on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = ("data", "model") if pods is None else ("pod", "data", "model")
+    sizes = (data, model) if pods is None else (pods, data, model)
+    n = math.prod(sizes)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if n > world:
+        raise ValueError(f"spmd_mesh: a {' x '.join(f'{a}={s}' for a, s in zip(names, sizes))} "
+                         f"mesh needs a default process group of {n} ranks; it has {world}")
+    dm = DeviceMesh("cpu", torch.arange(n).reshape(sizes), mesh_dim_names=names)
+    return SpmdMesh(axis_names=names, shape=dict(zip(names, sizes)), device_mesh=dm)
+
+
+def make_production_spmd_mesh(*, multi_pod: bool = False) -> SpmdMesh:
+    """The production geometry (256 or 512 ranks) as an :class:`SpmdMesh`."""
+    return spmd_mesh(DEFAULT_DATA, DEFAULT_MODEL, pods=DEFAULT_PODS if multi_pod else None)
 
 
 def dp_axes(mesh) -> tuple:

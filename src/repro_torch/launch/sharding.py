@@ -17,7 +17,9 @@ Policy (DESIGN.md §5):
 
 No trainer lays its tensors out by these specs yet: data-parallel training
 holds every param and the whole optimizer state on every rank (the
-reference's training launcher applies no specs either). :func:`opt_specs`
+reference's training launcher applies no specs either). The dry run does
+(:func:`place`: DTensors over the mesh's ``DeviceMesh``, the reference's
+``in_shardings``). :func:`opt_specs`
 copies the reference's path handling as it is: its ``^(m|v|f|err)/``
 matches the error state's ``err/...`` leaves but never the moments'
 ``opt/m|v|f/...``, so the leading group axis is left out only for the error
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.dist import Dist, NamedSharding, P
+from repro_torch.models.dist import Dist, NamedSharding, P, placements
 from repro_torch.train import tree as tr
 
 FSDP_THRESHOLD = 8 * 1024 * 1024  # bytes; leaves above this get FSDP
@@ -259,3 +261,36 @@ def to_shardings(mesh, spec_tree):
     """Each spec of a tree on ``mesh`` (the reference's ``NamedSharding``
     tree); the trainer places nothing by it yet."""
     return tr.map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# DTensor layouts (the dry run's ``in_shardings``)
+# ---------------------------------------------------------------------------
+def to_placements(mesh, spec_tree):
+    """Each spec of a tree as DTensor placements over ``mesh.device_mesh``
+    (``models.dist.placements``: a tuple entry shards its dim over several
+    mesh axes, the first the outermost)."""
+    return tr.map(lambda s: placements(mesh, s), spec_tree)
+
+
+def place(tree, spec_tree, mesh, fake_mode):
+    """A tree of shapes (``meta`` tensors, ``registry.Spec``) as DTensors
+    laid out by the matching spec tree over ``mesh``, each rank's shard a
+    fake tensor of ``fake_mode`` on the CPU: nothing is allocated. The
+    specs are fitted (every sharded dim divides)."""
+    from torch.distributed.tensor import DTensor
+
+    dm = mesh.device_mesh
+
+    def one(leaf, pl):
+        local = list(leaf.shape)
+        for i, p in enumerate(pl):
+            if p.is_shard():
+                local[p.dim] //= dm.size(i)
+        with fake_mode:
+            t = torch.empty(local, dtype=leaf.dtype)
+        glob = torch.empty(leaf.shape, device="meta")
+        return DTensor.from_local(t, dm, pl, run_check=False, shape=glob.shape,
+                                  stride=glob.stride())
+
+    return tr.map(one, tree, to_placements(mesh, spec_tree))

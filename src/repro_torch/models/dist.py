@@ -6,14 +6,21 @@ a process group per axis and one over the data-parallel axes together) and
 the names of the data-parallel (``dp``) and tensor-parallel (``tp``) axes.
 Without a mesh (``NO_DIST``) every helper is the identity.
 
-The reference's ``constrain`` is a ``with_sharding_constraint``: it places
-work and changes no value. Here it returns its input and stays at the
-reference's call sites, so that a later layout has them.
+Two kinds of mesh. A ``TrainMesh`` is the live data-parallel step's: each
+rank holds its rows of the batch, and the model sums over the DP group by
+hand (:attr:`Dist.dp_split`): :meth:`Dist.psum` and :meth:`Dist.all_gather`
+(counted per site in ``core.sharding``'s collective record). With
+``NO_DIST`` they return their input; on a one-rank mesh they run and
+change nothing. A mesh with a ``device_mesh`` (``launch.mesh.SpmdMesh``,
+the dry run's) is the reference's global view: the tensors are DTensors
+over that ``DeviceMesh``, every value is the global one, and the
+collectives are the ones DTensor issues; the hand-made ones are then the
+identity, as without a mesh.
 
-What the port adds are the data-parallel collectives, over the DP group
-only: :meth:`Dist.psum` and :meth:`Dist.all_gather` (counted per site in
-``core.sharding``'s collective record). With ``NO_DIST`` they return their
-input; on a one-rank mesh they run and change nothing.
+The reference's ``constrain`` is a ``with_sharding_constraint``: it places
+work and changes no value. Under a global-view mesh :meth:`Dist.constrain`
+lays the tensor out by the fitted spec's placements (:func:`placements`),
+and its gradient likewise; elsewhere it returns the tensor as it is.
 
 A spec is a :class:`P`, a tuple with one entry per dim: None, an axis name,
 or a tuple of names (JAX's ``PartitionSpec``, entry for entry).
@@ -75,8 +82,23 @@ class Dist:
         return P(*fixed)
 
     def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
-        """The reference's sharding constraint: the value unchanged."""
-        return x
+        """The reference's sharding constraint. Under a global-view mesh the
+        tensor laid out by the fitted spec over the mesh's ``DeviceMesh``: a
+        DTensor redistributed, a plain tensor (a value every rank holds
+        whole, as DTensor's implicit replication takes it) made a DTensor
+        and sliced; its gradient is laid out the same way. Elsewhere the
+        tensor as it is. The value is unchanged."""
+        if not self.spmd:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate
+
+        dm = self.mesh.device_mesh
+        want = placements(self.mesh, self.fit_spec(x.shape, P(*spec)))
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim, run_check=False)
+        if tuple(x.placements) != want:
+            x = x.redistribute(dm, want)
+        return _CotangentLayout.apply(x, want) if x.requires_grad else x
 
     def sharding(self, shape, spec) -> P | None:
         """The fitted spec (None without a mesh)."""
@@ -84,15 +106,62 @@ class Dist:
             return None
         return self.fit_spec(shape, spec)
 
+    def local(self, fn, args: tuple, specs: tuple, out: tuple | None = None,
+              inplace: tuple = ()):
+        """``fn(*args)`` on each rank's shards, as JAX's ``shard_map``: under
+        a global-view mesh each tensor arg laid out by its spec (None: passed
+        as it is), ``fn`` run on the local shards and its output laid out as
+        the first arg, or as ``out`` = (its global shape, its spec). ``fn``
+        must be parallel along every sharded dim. DTensor cannot shard a
+        batched product whose batch merges two sharded dims (batch and
+        heads), nor every in-place scatter or pad; inside ``fn`` each rank's
+        op is a plain one, and the gradients it hands back are made
+        contiguous (DTensor takes a shard's layout to be the global one's).
+        The args at ``inplace``, which ``fn`` writes, must already have their
+        spec's layout (a reshard would write a copy). Elsewhere
+        ``fn(*args)``."""
+        if not self.spmd:
+            return fn(*args)
+        from torch.distributed.tensor.experimental import local_map
+
+        for i in inplace:
+            want = placements(self.mesh, self.fit_spec(args[i].shape, P(*specs[i])))
+            if tuple(args[i].placements) != want:
+                raise ValueError(f"an in-place arg laid out {args[i].placements}, not {want}")
+        args = tuple(a if s is None else self.constrain(a, *s) for a, s in zip(args, specs))
+        in_pl = tuple(None if s is None else a.placements for a, s in zip(args, specs))
+        out_pl = args[0].placements if out is None else placements(
+            self.mesh, self.fit_spec(out[0], P(*out[1])))
+
+        def run(*local):
+            return fn(*(_ContiguousGrad.apply(t) if isinstance(t, torch.Tensor)
+                        and t.requires_grad else t for t in local))
+
+        return local_map(run, out_placements=(out_pl,), in_placements=in_pl,
+                         device_mesh=self.mesh.device_mesh)(*args)
+
+    @property
+    def spmd(self) -> bool:
+        """A global-view mesh whose tensors are DTensors (the dry run's)."""
+        return getattr(self.mesh, "device_mesh", None) is not None
+
+    @property
+    def dp_split(self) -> bool:
+        """Each rank holds its rows and the DP sums are taken by hand (a
+        ``TrainMesh``)."""
+        return self.mesh is not None and not self.spmd
+
     # ------------------------------------------------------------------
-    # the data-parallel axes
+    # the data-parallel axes, split by hand
     # ------------------------------------------------------------------
     def dp_size(self) -> int:
-        return self.axis_size(self.dp)
+        """The DP ranks the batch is split over by hand (1 without a mesh
+        and on a global-view mesh)."""
+        return self.axis_size(self.dp) if self.dp_split else 1
 
     def dp_rank(self) -> int:
         """This rank's index along the DP axes (row-major in ``dp``'s order)."""
-        if self.mesh is None:
+        if not self.dp_split:
             return 0
         r = 0
         for a in _axes(self.dp):
@@ -102,7 +171,7 @@ class Dist:
     def psum(self, x: torch.Tensor, site: str) -> torch.Tensor:
         """Sum of ``x`` over the DP ranks (a new tensor; ``x`` without a
         mesh). ``x`` carries no gradient."""
-        if self.mesh is None:
+        if not self.dp_split:
             return x
         out = x.detach().clone()
         self.all_reduce_([out], site)
@@ -110,7 +179,7 @@ class Dist:
 
     def all_reduce_(self, tensors: list, site: str) -> None:
         """SUM over the DP ranks in place, one call a tensor."""
-        if self.mesh is None:
+        if not self.dp_split:
             return
         import torch.distributed as tdist
 
@@ -124,7 +193,7 @@ class Dist:
 
     def all_gather(self, x: torch.Tensor, site: str) -> torch.Tensor:
         """Every DP rank's ``x``, stacked in rank order: (dp_size, *x.shape)."""
-        if self.mesh is None:
+        if not self.dp_split:
             return x[None]
         import torch.distributed as tdist
 
@@ -150,3 +219,54 @@ class Dist:
 
 
 NO_DIST = Dist()
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+class _CotangentLayout(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the value: a
+    sharding constraint holds the cotangent too (JAX transposes
+    ``with_sharding_constraint`` into one on the cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.mesh, ctx.want = x.device_mesh, want
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(ctx.mesh, ctx.want)
+        return g, None
+
+
+def placements(mesh, spec) -> tuple:
+    """A fitted spec as DTensor placements over ``mesh.device_mesh``: the
+    tensor dim of each spec entry sharded over its mesh axes. An entry that
+    is a tuple of axes shards its dim over them in the reference's order
+    (the first the outermost), which must be the mesh's order; an axis no
+    entry names replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(mesh.axis_names)
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = _axes(ax)
+        at = [mesh.axis_names.index(a) for a in axes]
+        if at != sorted(at):
+            raise ValueError(f"spec entry {ax} is not in the mesh's axis order "
+                             f"{mesh.axis_names}")
+        for i in at:
+            out[i] = Shard(dim)
+    return tuple(out)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import registry as kernels
+from repro_torch.models.dist import NO_DIST, Dist
 
 
 def matmul_numerics() -> None:
@@ -161,11 +162,13 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     operands on the card go to cuBLAS with a float32 output (the
     ``out_dtype`` overloads; it sums in float32); elsewhere the float32
     product of the upcast operands, whose products of bf16 values are
-    exact. ``a`` is (..., k) against ``b`` (k, n), or (E, m, k) against
-    (E, k, n)."""
+    exact. ``a`` is (..., k) against ``b`` (k, n), or (*batch, m, k)
+    against (*batch, k, n) with the same batch dims."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        if b.dim() == 3:
-            return _MatmulF32.apply(a, b)
+        if b.dim() >= 3:
+            batch = b.shape[:-2]
+            out = _MatmulF32.apply(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]))
+            return out.reshape(*batch, *out.shape[-2:])
         out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[1])
     return torch.matmul(a.float(), b.float())
@@ -197,12 +200,32 @@ class _MatmulF32(torch.autograd.Function):
         return ga, gb
 
 
-def qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, rope=True):
-    """x (B, S, d) -> q (B,S,H,hd), k/v (B,S,KVH,hd), rotated."""
+def kv_axis(cfg: ArchConfig, dist: Dist):
+    """The mesh axis that splits the KV heads (the model axis where their
+    count divides by it, else None: replicated)."""
+    return dist.tp if cfg.n_kv_heads % dist.axis_size(dist.tp) == 0 else None
+
+
+def _heads(cfg: ArchConfig, p: dict, x: torch.Tensor, which: str, n: int,
+           dist: Dist = NO_DIST) -> torch.Tensor:
+    """x (B, S, d) projected by ``w{which}`` (+ ``b{which}``) and split into
+    n heads (B, S, n, hd). Under a global-view mesh the projection is laid
+    out before the split with whole heads to a shard, or its heads
+    replicated where n does not divide by the model axis (DTensor refuses
+    the uneven split that XLA reshards by itself)."""
     B, S, _ = x.shape
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    y = _proj(x, p["w" + which], p.get("b" + which))
+    y = dist.constrain(y, dist.dp, None, dist.tp if n % dist.axis_size(dist.tp) == 0 else None)
+    return y.reshape(B, S, n, cfg.hd)
+
+
+def qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, rope=True,
+        dist: Dist = NO_DIST):
+    """x (B, S, d) -> q (B,S,H,hd), k/v (B,S,KVH,hd), rotated (heads split
+    by :func:`_heads`)."""
+    q = _heads(cfg, p, x, "q", cfg.n_heads, dist)
+    k = _heads(cfg, p, x, "k", cfg.n_kv_heads, dist)
+    v = _heads(cfg, p, x, "v", cfg.n_kv_heads, dist)
     if rope:
         q = rotate(cfg, q, positions)
         k = rotate(cfg, k, positions)
@@ -217,19 +240,26 @@ def chunked_gqa_attention(
     causal: bool = True,
     q_chunk: int = 512,
     kv_offset: int = 0,
+    unroll: bool = False,
+    causal_skip: bool = False,
 ) -> torch.Tensor:
     """Attention over query chunks, so that the score memory is
     (B, H, q_chunk, Sk) float32 at most. Plain PyTorch, as in the reference,
-    where it is jnp outside any Pallas kernel (its scanned path: float32
-    scores and softmax, output in q's dtype)."""
+    where it is jnp outside any Pallas kernel.
+
+    The default is the reference's scanned path: float32 scores and
+    softmax, output in q's dtype. ``unroll`` is its unrolled path, whose
+    numerics differ (:func:`_unrolled_chunk`); ``causal_skip`` there (causal,
+    ``kv_offset == 0``) lets query chunk i read K/V up to (i+1) * q_chunk
+    only. The chunks are a Python loop either way."""
     B, S, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
-    scale = hd ** -0.5
     q_chunk = min(q_chunk, S)
     n_chunks = -(-S // q_chunk)
-    kq = k.transpose(1, 2).float()  # (B, KVH, Sk, hd)
-    vq = v.transpose(1, 2).float()
+    kq, vq = k.transpose(1, 2), v.transpose(1, 2)  # (B, KVH, Sk, hd)
+    if not unroll:
+        kq, vq = kq.float(), vq.float()
     k_pos = kv_offset + torch.arange(Sk, device=q.device)
     outs = []
     for ci in range(n_chunks):
@@ -238,16 +268,37 @@ def chunked_gqa_attention(
         if n < q_chunk:  # the reference pads the last chunk
             qb = F.pad(qb, (0, 0, 0, 0, 0, q_chunk - n))
         qb = qb.reshape(B, q_chunk, KVH, G, hd).permute(0, 2, 3, 1, 4)
-        s = torch.einsum("bkgqd,bksd->bkgqs", qb.float(), kq) * scale
-        if causal:
-            q_pos = ci * q_chunk + torch.arange(q_chunk, device=q.device)
-            mask = k_pos[None, :] <= q_pos[:, None]
-            s = torch.where(mask, s, float("-inf"))
-        pr = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bksd->bkgqd", pr, vq)
+        q_pos = ci * q_chunk + torch.arange(q_chunk, device=q.device)
+        if unroll:
+            hi = min((ci + 1) * q_chunk, Sk) if causal and causal_skip and kv_offset == 0 else Sk
+            o = _unrolled_chunk(qb, kq[:, :, :hi], vq[:, :, :hi], k_pos[:hi], q_pos, causal)
+        else:
+            s = torch.einsum("bkgqd,bksd->bkgqs", qb.float(), kq) * hd ** -0.5
+            if causal:
+                s = torch.where(k_pos[None, :] <= q_pos[:, None], s, float("-inf"))
+            o = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(s, dim=-1), vq)
         o = o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, hd).to(q.dtype)
         outs.append(o[:, :n])
     return torch.cat(outs, dim=1)
+
+
+def _unrolled_chunk(qb: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                    k_pos: torch.Tensor, q_pos: torch.Tensor, causal: bool) -> torch.Tensor:
+    """One query chunk of the reference's unrolled path, rounding for
+    rounding: the scores summed in float32 from the model-dtype operands,
+    stored in the model dtype and scaled there; the mask's -inf in that
+    dtype; the softmax in float32, its weights stored in the model dtype;
+    the PV product summed in float32. ``qb`` (B, KVH, G, q, hd), ``kq`` /
+    ``vq`` (B, KVH, s, hd) -> float32 (B, KVH, G, q, hd)."""
+    B, KVH, G, q, hd = qb.shape
+    dt = qb.dtype
+    s = matmul_f32(qb.reshape(B, KVH, G * q, hd), kq.transpose(-1, -2)).to(dt)
+    s = s.reshape(B, KVH, G, q, -1) * torch.tensor(hd ** -0.5, dtype=dt, device=s.device)
+    if causal:
+        s = torch.where(k_pos[None, :] <= q_pos[:, None], s,
+                        torch.tensor(float("-inf"), dtype=dt, device=s.device))
+    p = torch.softmax(s.float(), dim=-1).to(dt)
+    return matmul_f32(p.reshape(B, KVH, G * q, -1), vq).reshape(B, KVH, G, q, hd)
 
 
 def attention_train(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -255,7 +306,7 @@ def attention_train(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.
     """Full-sequence attention (training and prefill): (B, S, d)."""
     B, S = x.shape[:2]
     q, k, v = qkv(cfg, p, x, positions)
-    o = chunked_gqa_attention(q, k, v, causal=causal)
+    o = chunked_gqa_attention(q, k, v, causal=causal, unroll=cfg.unroll)
     return _proj(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
 
 
@@ -296,31 +347,53 @@ def attention_decode_paged(
     btab: torch.Tensor,  # int32 (B, pages_per_seq) logical slot -> pool page
     lens: torch.Tensor,  # int32 (B,)
     kernel_backend: str = "auto",
+    dist: Dist = NO_DIST,
 ):
     """One decode step through the paged KV cache: the new token's K/V go,
     in place, into the page that the block table assigns to slot
     ``lens // page``; attention reads K/V through the block table (the
-    paged_attention kernel, on the per-sequence pools as they are)."""
+    paged_attention kernel, on the per-sequence pools as they are). Under a
+    global-view mesh the write runs on each rank's shard of the pools and
+    the attention on each rank's sequences and KV heads, with whole pages
+    (``Dist.local``)."""
     B = x.shape[0]
     page = cfg.page_size
     pps = btab.shape[1]
-    q, k_new, v_new = qkv(cfg, p, x, lens[:, None], rope=not cfg.encdec)
+    q, k_new, v_new = qkv(cfg, p, x, lens[:, None], rope=not cfg.encdec, dist=dist)
+    KVH, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     slot = (lens // page).long()
-    # a slot past the table drops the write, as the reference's filled
-    # gather and dropping scatter do: rewrite the row it already holds
-    fits = (slot < pps)[:, None, None]
     phys = torch.gather(btab, 1, slot.clamp(max=pps - 1)[:, None])[:, 0].long()
-    off = (lens % page).long()
-    bidx = torch.arange(B, device=x.device)
-    # advanced indices around a slice go first: (B, KVH, hd), as k_new[:, 0]
+    # a slot past the table drops the write (row -1 matches none), as the
+    # reference's filled gather and dropping scatter do
+    off = torch.where(slot < pps, (lens % page).long(), -1)
+    dp, kv = dist.dp, kv_axis(cfg, dist)
+    rows_ax = None if kv else dist.tp  # launch.sharding.cache_specs's page rows
+    pages_spec = (dp, kv, None, rows_ax, None)
+    rows = torch.arange(page, device=x.device)
     for pages, new in ((k_pages, k_new), (v_pages, v_new)):
-        pages[bidx, :, phys, off] = torch.where(fits, new[:, 0], pages[bidx, :, phys, off])
-    KVH, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    qh = q.reshape(B, KVH, G, cfg.hd)
-    o = kernels.dispatch("paged_attention", kernel_backend,
-                         qh, k_pages, v_pages, btab, lens + 1)
+        dist.local(_write_token, (pages, new.reshape(B, KVH, hd), phys, off, rows),
+                   (pages_spec, (dp, kv, None), (dp,), (dp,), (rows_ax,)), inplace=(0,))
+    qh = dist.constrain(q, dp, None, kv, None).reshape(B, KVH, G, cfg.hd)  # whole KV groups
+    o = dist.local(lambda *a: kernels.dispatch("paged_attention", kernel_backend, *a),
+                   (qh, k_pages, v_pages, btab, lens + 1),
+                   ((dp, kv, None, None), (dp, kv, None, None, None),
+                    (dp, kv, None, None, None), (dp, None), (dp,)))
     o = o.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
     return _proj(o, p["wo"]), k_pages, v_pages
+
+
+def _write_token(pages: torch.Tensor, new: torch.Tensor, phys: torch.Tensor,
+                 off: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """pages (B, KVH, n_pool, page, hd), in place: the row of page
+    ``phys[b]`` whose index in ``rows`` is ``off[b]`` takes ``new[b]`` (B,
+    KVH, hd). The page is read, the row replaced and the page written back,
+    a scatter along the pool axis; ``rows`` holds the page rows' indices
+    (all of them, or a shard's under a global-view mesh)."""
+    B, KVH, _, P, hd = pages.shape
+    at = (rows[None] == off[:, None]).reshape(B, 1, 1, P, 1)
+    idx = phys.reshape(B, 1, 1, 1, 1).expand(B, KVH, 1, P, hd)
+    pages.scatter_(2, idx, torch.where(at, new.reshape(B, KVH, 1, 1, hd), pages.gather(2, idx)))
+    return pages
 
 
 def init_cross_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
@@ -328,27 +401,32 @@ def init_cross_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
 
 
 def cross_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_k: torch.Tensor,
-                    enc_v: torch.Tensor) -> torch.Tensor:
+                    enc_v: torch.Tensor, dist: Dist = NO_DIST) -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V
-    (enc_k/v: (B, F, KVH, hd))."""
+    (enc_k/v: (B, F, KVH, hd)). Under a global-view mesh the attention runs
+    on each rank's rows and heads (``Dist.local``), as ``transformer``'s
+    self-attention does: the decode cache may hold the encoder K/V split
+    along hd."""
     B, S, _ = x.shape
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.hd)
-    o = chunked_gqa_attention(q, enc_k, enc_v, causal=False)
-    return _proj(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+    q = _heads(cfg, p, x, "q", cfg.n_heads, dist)
+    spec = (dist.dp, None, kv_axis(cfg, dist), None)
+    o = dist.local(lambda q, k, v: chunked_gqa_attention(q, k, v, causal=False,
+                                                         unroll=cfg.unroll),
+                   (q, enc_k, enc_v), (spec, spec, spec))
+    out = _proj(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+    return dist.constrain(out, dist.dp, None, None)
 
 
-def encoder_kv(cfg: ArchConfig, p: dict, enc_out: torch.Tensor) -> tuple:
+def encoder_kv(cfg: ArchConfig, p: dict, enc_out: torch.Tensor, dist: Dist = NO_DIST) -> tuple:
     """Cross-attention K/V of the encoder output (B, F, d)."""
-    B, F_, _ = enc_out.shape
-    k = _proj(enc_out, p["wk"], p.get("bk")).reshape(B, F_, cfg.n_kv_heads, cfg.hd)
-    v = _proj(enc_out, p["wv"], p.get("bv")).reshape(B, F_, cfg.n_kv_heads, cfg.hd)
-    return k, v
+    return (_heads(cfg, p, enc_out, "k", cfg.n_kv_heads, dist),
+            _heads(cfg, p, enc_out, "v", cfg.n_kv_heads, dist))
 
 
 def cross_attention_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_k: torch.Tensor,
-                           enc_v: torch.Tensor) -> torch.Tensor:
+                           enc_v: torch.Tensor, dist: Dist = NO_DIST) -> torch.Tensor:
     """Single-token cross-attention (decode): the same math at S = 1."""
-    return cross_attention(cfg, p, x, enc_k, enc_v)
+    return cross_attention(cfg, p, x, enc_k, enc_v, dist)
 
 
 # ---------------------------------------------------------------------------
@@ -371,15 +449,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, dist: Dist = NO_DIST) -> torch.Tensor:
     """swiglu, geglu or gelu; the activation and the gate product in
-    float32 on the projections rounded to x's dtype."""
+    float32 on the projections rounded to x's dtype. Under a global-view
+    mesh the output is summed over the model axis where it comes out (the
+    row-parallel product's partial sums), as XLA lays it out: left to
+    itself, DTensor may reduce-scatter it along the sequence, a layout
+    whose backward it cannot shard."""
     if cfg.activation in ("swiglu", "geglu"):
         act = F.silu if cfg.activation == "swiglu" else gelu
         h = act(_proj(x, p["wi_gate"]).float()) * _proj(x, p["wi_up"]).float()
     else:
         h = gelu(_proj(x, p["wi"]).float())
-    return _proj(h.to(x.dtype), p["wo"])
+    return dist.constrain(_proj(h.to(x.dtype), p["wo"]), dist.dp, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -401,15 +483,29 @@ def init_embedding(cfg: ArchConfig, gen: torch.Generator) -> dict:
     return p
 
 
-def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor, dist: Dist = NO_DIST) -> torch.Tensor:
+    """The token rows; a negative id counts from the end, as indexing (the
+    reference's too) takes it. Under a global-view mesh through
+    ``F.embedding``, whose lookup and backward on a vocab-sharded table
+    have DTensor sharding rules (row indexing's backward, an accumulating
+    ``index_put``, has none in every torch release); elsewhere by row
+    indexing, whose backward rounds as it always has."""
+    ids = tokens.long()
+    if dist.spmd:
+        return F.embedding(torch.where(ids < 0, ids + p["tok"].shape[0], ids), p["tok"])
+    return p["tok"][ids]
 
 
-def unembed(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+def unembed(cfg: ArchConfig, p: dict, h: torch.Tensor, dist: Dist = NO_DIST) -> torch.Tensor:
     """float32 logits through the tied table or the untied ``unembed`` (d,
     vocab): the reference's ``preferred_element_type=f32``, bf16 products
     summed in float32 and never rounded to bf16 (:func:`matmul_f32`). A
     bf16 product would round the logits to bf16 first, where argmax ties
-    become likely."""
+    become likely. Under a global-view mesh the table is gathered whole
+    along d and kept split along the vocab, so that each rank makes its
+    vocab shard of the logits (DTensor's cheapest product otherwise makes
+    every rank compute all of them), and the logits are held to that
+    layout, which their gradient then takes too."""
     w = p["tok"].t() if cfg.tie_embeddings else p["unembed"]
-    return matmul_f32(h, w)
+    logits = matmul_f32(h, dist.constrain(w, None, dist.tp))
+    return dist.constrain(logits, dist.dp, *([None] * (h.dim() - 2)), dist.tp)

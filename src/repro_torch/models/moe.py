@@ -75,11 +75,14 @@ def capacity(cfg: ArchConfig, T: int) -> int:
     return min(max(1, int(T * k / cfg.n_experts * cfg.capacity_factor)), T * k)
 
 
-def route(cfg: ArchConfig, p: dict, xt: torch.Tensor) -> tuple:
+def route(cfg: ArchConfig, p: dict, xt: torch.Tensor, dist=NO_DIST) -> tuple:
     """xt (T, d) -> (float32 softmax weights (T, k), int64 experts (T, k)):
     the top-k router logits, ties to the lowest expert, padded experts
-    never chosen."""
-    logits = torch.matmul(xt.float(), p["router"])  # (T, E) float32
+    never chosen. Under a global-view mesh the logits are held token-split
+    with every expert on each rank, so the choices come out token-split
+    (DTensor would otherwise sort them split over both axes, a layout the
+    slots' gathers cannot take)."""
+    logits = dist.constrain(torch.matmul(xt.float(), p["router"]), dist.dp, None)  # (T, E)
     E = logits.shape[-1]
     if E > cfg.n_experts:
         pad = torch.arange(E, device=xt.device) >= cfg.n_experts
@@ -97,7 +100,7 @@ def dispatch_slots(cfg: ArchConfig, experts: torch.Tensor, cap: int, dist=NO_DIS
     flat_e = experts.reshape(-1)
     onehot = F.one_hot(flat_e, cfg.e_pad).to(torch.int32)  # (T*k, E)
     pos = ((torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot) * onehot).sum(-1)
-    if dist.mesh is None:
+    if not dist.dp_split:
         return flat_e, pos, pos < cap
     counts = dist.all_gather(onehot.sum(0, dtype=torch.int32), "moe_counts")  # (dp, E)
     before = counts[:dist.dp_rank()].sum(0, dtype=torch.int32)  # the earlier ranks' pairs
@@ -111,7 +114,7 @@ def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, dist=NO_DIST) -> torch.
     E = p["experts"]["wi_gate"].shape[0]
     T, k = B * S, cfg.top_k
     xt = x.reshape(T, d)
-    weights, experts = route(cfg, p, xt)
+    weights, experts = route(cfg, p, xt, dist)
     cap = capacity(cfg, T * dist.dp_size())
     flat_e, pos, keep = dispatch_slots(cfg, experts, cap, dist)
     safe_pos = torch.where(keep, pos, cap).long()  # the drop row
@@ -119,13 +122,20 @@ def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, dist=NO_DIST) -> torch.
     buf = torch.zeros((E, cap + 1, d), dtype=x.dtype, device=x.device)
     buf = dist.constrain(buf, dist.tp, None, None)
     xk = dist.constrain(xt.repeat_interleave(k, dim=0), dist.dp, None)  # token-major, as flat_e
-    buf[flat_e, safe_pos] = xk
+    buf = buf.index_put((flat_e, safe_pos), xk)  # out of place: DTensor reshards it
     buf = dist.constrain(buf[:, :cap], dist.tp, None, None)
 
-    # the expert FFN, batched over E: float32 products of the buffer's dtype
-    ex = p["experts"]
+    # the expert FFN, batched over E: float32 products of the buffer's dtype.
+    # Under a global-view mesh each bank is gathered whole within its
+    # experts (FSDP may split d or ff over the DP axes) and the outputs are
+    # held expert-split with whole rows, the indices token-split: DTensor
+    # cannot gather rows of a bank split along d by indices split over both
+    # axes, a layout it otherwise picks
+    ex = {k: dist.constrain(w, dist.tp, None, None) for k, w in p["experts"].items()}
     h = F.silu(L.matmul_f32(buf, ex["wi_gate"])) * L.matmul_f32(buf, ex["wi_up"])
     out_buf = L.matmul_f32(h.to(buf.dtype), ex["wo"]).to(buf.dtype)  # (E, C, d)
+    out_buf = dist.constrain(out_buf, dist.tp, None, None)
+    flat_e, safe_pos = (dist.constrain(t, dist.dp) for t in (flat_e, safe_pos))
 
     gathered = out_buf[flat_e, safe_pos.clamp(max=cap - 1)]  # (T*k, d)
     gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=gathered.dtype,
@@ -133,8 +143,8 @@ def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, dist=NO_DIST) -> torch.
     combined = (gathered.reshape(T, k, d).float() * weights[..., None]).sum(dim=1)
     out = combined.to(x.dtype)
     if "shared" in p:
-        out = out + L.apply_mlp(cfg, p["shared"], xt)
-    return out.reshape(B, S, d)
+        out = out + L.apply_mlp(cfg, p["shared"], xt, dist)
+    return dist.constrain(out, dist.dp, None).reshape(B, S, d)
 
 
 def aux_loss(cfg: ArchConfig, p: dict, x: torch.Tensor, dist=NO_DIST) -> torch.Tensor:
@@ -143,8 +153,12 @@ def aux_loss(cfg: ArchConfig, p: dict, x: torch.Tensor, dist=NO_DIST) -> torch.T
     top-1 counts f_e (``argmax``, ties to the lowest expert) carry none.
     Under a mesh both means are over the global tokens: the counts summed
     over the DP ranks, the rank's probabilities divided by the global
-    count, so that the ranks' values sum to the reference's."""
+    count, so that the ranks' values sum to the reference's. Under a
+    global-view mesh the logits are held with every expert on each rank:
+    DTensor's ``argmax`` over a split dim needs each shard's offset, which
+    fake tensors cannot give in every torch release."""
     logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(), p["router"])
+    logits = dist.constrain(logits, dist.dp, None)
     T, E = logits.shape
     if E > cfg.n_experts:
         logits = torch.where(torch.arange(E, device=x.device) >= cfg.n_experts,

@@ -25,8 +25,8 @@ class Model:
     cfg: ArchConfig
     init: Callable  # (seed=0, device=None) -> params
     loss_fn: Callable  # (params, batch, dist=NO_DIST) -> (loss, {"ce", "aux"})
-    prefill: Callable  # (params, batch, max_seq=None, n_pool=None) -> (logits, cache)
-    decode: Callable  # (params, cache, tokens, kernel_backend="auto") -> (logits, cache)
+    prefill: Callable  # (params, batch, max_seq=None, dist=NO_DIST, n_pool=None) -> (logits, cache)
+    decode: Callable  # (params, cache, tokens, dist=NO_DIST, kernel_backend="auto") -> (logits, cache)
     init_cache: Callable  # (batch, max_seq, n_pool=None, device=None) -> cache
 
 
@@ -58,10 +58,10 @@ def build(cfg: ArchConfig | str) -> Model:
         cfg=cfg,
         init=lambda seed=0, device=None: _init(cfg, seed, device),
         loss_fn=lambda params, batch, dist=NO_DIST: T.loss_fn(cfg, params, batch, dist),
-        prefill=lambda params, batch, max_seq=None, n_pool=None:
-            T.prefill(cfg, params, batch, max_seq, n_pool),
-        decode=lambda params, cache, tokens, kernel_backend="auto":
-            T.decode_step(cfg, params, cache, tokens, kernel_backend),
+        prefill=lambda params, batch, max_seq=None, dist=NO_DIST, n_pool=None:
+            T.prefill(cfg, params, batch, max_seq, dist, n_pool),
+        decode=lambda params, cache, tokens, dist=NO_DIST, kernel_backend="auto":
+            T.decode_step(cfg, params, cache, tokens, dist, kernel_backend),
         init_cache=lambda batch, max_seq, n_pool=None, device=None:
             T.init_cache(cfg, batch, max_seq, n_pool, device),
     )

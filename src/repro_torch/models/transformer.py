@@ -21,6 +21,15 @@ and returns the same cache dict with ``lens`` advanced. ``cfg.remat ==
 (``torch.utils.checkpoint``), and the cross-entropy recomputes each
 sequence chunk's logits, so that neither the activations of every layer
 nor the (B, S, vocab) logits are held for the backward.
+
+``cfg.unroll`` is the reference's unrolled lowering (the dry run's): the
+port's loops over groups and chunks are Python either way, so it changes
+only the attention's numerics (``layers.chunked_gqa_attention``);
+``cfg.causal_skip`` lets the unrolled attention skip masked keys and
+``cfg.ssm_bf16`` keeps Mamba's expansion in bf16 (``models.mamba``).
+Under a global-view mesh (``dist``, the dry run's DTensors) the
+reference's ``constrain`` sites lay tensors out, and a few more where
+DTensor cannot infer the layout that XLA picks by itself.
 """
 from __future__ import annotations
 
@@ -34,17 +43,6 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
 from repro_torch.models.dist import NO_DIST, Dist
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP queue 1, {item})")
-
-
-def _check(cfg: ArchConfig) -> None:
-    """The unrolled lowering is the dry-run's; the port has none yet."""
-    if cfg.unroll or cfg.causal_skip:
-        raise _not_ported("the unrolled attention path (cfg.unroll / causal_skip)",
-                          "item 17: the dry-run tooling")
 
 
 # ===========================================================================
@@ -110,7 +108,6 @@ def _enc_cfg(cfg: ArchConfig) -> ArchConfig:
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """Random params on the generator's device, drawn from it in order
     (embedding, each group's layers, the encoder)."""
-    _check(cfg)
     params = {
         "embed": L.init_embedding(cfg, generator),
         "final_norm": L.init_norm(cfg, generator),
@@ -134,11 +131,14 @@ def _group(tree: dict, g: int) -> dict:
 # layer pieces
 # ===========================================================================
 def _embed_tokens(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-                  lens: torch.Tensor | None = None) -> torch.Tensor:
+                  lens: torch.Tensor | None = None, dist: Dist = NO_DIST) -> torch.Tensor:
     """Token embeddings, plus the decoder's learned positions where the
     config has them: positions 0..S-1 in prefill, ``lens`` (clamped to the
-    table, as the reference's gather clamps) at decode."""
-    h = L.embed(cfg, params["embed"], tokens)
+    table, as the reference's gather clamps) at decode. Laid out by the
+    batch (the reference constrains it so in training; under a global-view
+    mesh the lookup in a vocab-sharded table is a masked partial sum, which
+    DTensor must reduce once, where it is made)."""
+    h = dist.constrain(L.embed(cfg, params["embed"], tokens, dist), dist.dp, None, None)
     if cfg.encdec:
         pos = params["embed"]["pos_dec"]
         if lens is None:
@@ -159,20 +159,34 @@ def _apply_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, j: int, aux: bool = F
     if cfg.layer_is_moe(j):
         out = h + MOE.apply_moe(cfg, lp["ffn"], x, dist)
         return (out, MOE.aux_loss(cfg, lp["ffn"], x, dist)) if aux else out
-    out = h + L.apply_mlp(cfg, lp["ffn"], x)
+    out = h + L.apply_mlp(cfg, lp["ffn"], x, dist)
     return (out, zero) if aux else out
 
 
+def _mixed(mix: torch.Tensor, dist: Dist) -> torch.Tensor:
+    """A mixer's output laid out by the batch before the residual add: under
+    a global-view mesh its row-parallel output projection leaves partial
+    sums, which DTensor would otherwise reduce-scatter along the sequence,
+    a layout whose later reshapes and backward it cannot shard."""
+    return dist.constrain(mix, dist.dp, None, None)
+
+
 def _attend(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-            causal: bool) -> tuple:
-    """Full-sequence attention: (output, k, v)."""
+            causal: bool, dist: Dist = NO_DIST) -> tuple:
+    """Full-sequence attention: (output, k, v). Under a global-view mesh the
+    attention runs on each rank's rows and heads (``Dist.local``), the heads
+    split only where whole KV groups fall to each shard."""
     B, S = x.shape[:2]
-    q, k, v = L.qkv(cfg, p, x, positions, rope=not cfg.encdec)
-    o = L.chunked_gqa_attention(q, k, v, causal=causal)
+    q, k, v = L.qkv(cfg, p, x, positions, rope=not cfg.encdec, dist=dist)
+    spec = (dist.dp, None, L.kv_axis(cfg, dist), None)
+    o = dist.local(lambda q, k, v: L.chunked_gqa_attention(
+        q, k, v, causal=causal, unroll=cfg.unroll, causal_skip=cfg.causal_skip),
+        (q, k, v), (spec, spec, spec))
     return L._proj(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"]), k, v
 
 
-def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor,
+            dist: Dist = NO_DIST) -> torch.Tensor:
     """The Whisper encoder over stub frame embeddings (B, F, d)."""
     ecfg = _enc_cfg(cfg)
     B, F_ = frames.shape[:2]
@@ -184,8 +198,9 @@ def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor
         for j in range(ecfg.group_size):
             lp = gp[f"layer{j}"]
             x = L.apply_norm(ecfg, lp["norm1"], h)
-            h = h + _attend(ecfg, lp["attn"], x, pos, causal=False)[0]
-            h = _apply_ffn(ecfg, lp, h, j)
+            h = h + _mixed(_attend(ecfg, lp["attn"], x, pos, causal=False, dist=dist)[0], dist)
+            h = _apply_ffn(ecfg, lp, h, j, dist=dist)
+        h = dist.constrain(h, dist.dp, None, None)
     return L.apply_norm(cfg, params["encoder"]["final_norm"], h)
 
 
@@ -205,14 +220,14 @@ def _apply_group_train(cfg: ArchConfig, gp: dict, h: torch.Tensor, positions: to
         lp, kind = gp[f"layer{j}"], cfg.layer_kind(j)
         x = L.apply_norm(cfg, lp["norm1"], h)
         if kind == "attn":
-            mix = _attend(cfg, lp["attn"], x, positions, causal=True)[0]
+            mix = _attend(cfg, lp["attn"], x, positions, causal=True, dist=dist)[0]
         else:
             mix = TRAIN_MIXERS[kind](cfg, lp[kind], x)
-        h = h + mix
+        h = h + _mixed(mix, dist)
         if "xattn" in lp:
             xh = L.apply_norm(cfg, lp["norm_x"], h)
             h = h + L.cross_attention(cfg, lp["xattn"], xh,
-                                      *L.encoder_kv(cfg, lp["xattn"], enc_out))
+                                      *L.encoder_kv(cfg, lp["xattn"], enc_out, dist), dist)
         h, aux = _apply_ffn(cfg, lp, h, j, aux=True, dist=dist)
         aux_total = aux_total + aux
         h = dist.constrain(h, dist.dp, None, None)
@@ -235,14 +250,13 @@ def forward_train(cfg: ArchConfig, params: dict, batch: dict, dist: Dist = NO_DI
     ``tokens`` (B, S), and M-RoPE ``positions`` (3, B, S) or an
     encoder-decoder's ``frames`` (B, F, d) where the config has them; under
     a mesh, this DP rank's rows of the global batch (``dist``)."""
-    _check(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    h = dist.constrain(_embed_tokens(cfg, params, tokens), dist.dp, None, None)
-    enc_out = _encode(cfg, params, batch["frames"]) if cfg.encdec else None
+    h = _embed_tokens(cfg, params, tokens, dist=dist)
+    enc_out = _encode(cfg, params, batch["frames"], dist) if cfg.encdec else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     for gp in _unstack(params["groups"], cfg.n_groups):
@@ -255,13 +269,25 @@ def forward_train(cfg: ArchConfig, params: dict, batch: dict, dist: Dist = NO_DI
     return L.apply_norm(cfg, params["final_norm"], h), aux
 
 
-def _ce_chunk(cfg: ArchConfig, embed: dict, hb: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+def _ce_chunk(cfg: ArchConfig, embed: dict, hb: torch.Tensor, lb: torch.Tensor,
+              dist: Dist = NO_DIST) -> torch.Tensor:
     """Summed cross-entropy of one chunk (B, chunk, d) against its labels
-    (B, chunk); labels < 0 add nothing."""
-    logits = L.unembed(cfg, embed, hb)  # float32 (B, chunk, V)
-    logz = torch.logsumexp(logits, dim=-1)
+    (B, chunk); labels < 0 add nothing. Under a global-view mesh the
+    log-sum-exp is written out (max, then the sum of exponentials), which a
+    vocab-sharded chunk reduces shard by shard where ``torch.logsumexp``
+    gathers the whole vocab, and the gathered target logits are reduced
+    over the vocab shards while they still have the gather's shape
+    (DTensor's masked partial sum of a vocab-sharded gather cannot follow
+    the select after it)."""
+    logits = L.unembed(cfg, embed, hb, dist)  # float32 (B, chunk, V)
+    if dist.spmd:  # jax.nn.logsumexp's form, reduced shard by shard
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        logz = (torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True)) + m)[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
     mask = lb >= 0
-    tgt = torch.gather(logits, -1, lb.clamp(min=0).long()[..., None])[..., 0]
+    tgt = torch.gather(logits, -1, lb.clamp(min=0).long()[..., None])
+    tgt = dist.constrain(tgt, dist.dp, None, None)[..., 0]
     return torch.where(mask, logz - tgt, torch.zeros((), device=logits.device)).sum()
 
 
@@ -278,10 +304,10 @@ def chunked_ce_loss(cfg: ArchConfig, params: dict, h: torch.Tensor, labels: torc
     for c0 in range(0, S, chunk):  # the reference pads the last chunk with masked labels
         hb, lb = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_ce_chunk, cfg, params["embed"], hb, lb,
+            total = total + checkpoint(_ce_chunk, cfg, params["embed"], hb, lb, dist,
                                        use_reentrant=False)
         else:
-            total = total + _ce_chunk(cfg, params["embed"], hb, lb)
+            total = total + _ce_chunk(cfg, params["embed"], hb, lb, dist)
     count = dist.psum((labels >= 0).sum(), "ce_count")
     return total / torch.clamp(count, min=1)
 
@@ -317,7 +343,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, n_pool: int | None = N
     """Empty decode cache for ``max_seq`` tokens on ``device`` (CUDA unless
     named): paged K/V for attention layers, the mixers' states for the
     others; ``n_pool`` overrides the physical pages per sequence."""
-    _check(cfg)
     dev = runtime.resolve_device(device)
     n_pool = n_pool or n_pool_pages(cfg, max_seq)
     G, KVH, hd = cfg.n_groups, cfg.n_kv_heads, cfg.hd
@@ -343,18 +368,28 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, n_pool: int | None = N
     return cache
 
 
-def _pack_pages(cfg: ArchConfig, kv: torch.Tensor, n_pool: int) -> torch.Tensor:
-    """(B, S, KVH, hd) -> (B, KVH, n_pool, page, hd) identity-paged."""
+def _pack_pages(cfg: ArchConfig, kv: torch.Tensor, n_pool: int,
+                dist: Dist = NO_DIST) -> torch.Tensor:
+    """(B, S, KVH, hd) -> (B, KVH, n_pool, page, hd) identity-paged; under
+    a global-view mesh on each rank's rows and KV heads (``Dist.local``)."""
     B, S, KVH, hd = kv.shape
     page = cfg.page_size
-    kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, n_pool * page - S))
-    return kv.reshape(B, n_pool, page, KVH, hd).permute(0, 3, 1, 2, 4).contiguous()
+
+    def pack(kv):
+        kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, n_pool * page - S))
+        return kv.reshape(kv.shape[0], n_pool, page, kv.shape[2], hd).permute(
+            0, 3, 1, 2, 4).contiguous()
+
+    kv_ax = L.kv_axis(cfg, dist)
+    return dist.local(pack, (kv,), ((dist.dp, None, kv_ax, None),),
+                      out=((B, KVH, n_pool, page, hd), (dist.dp, kv_ax, None, None, None)))
 
 
 # ===========================================================================
 # decode
 # ===========================================================================
-def _apply_layer_decode(cfg, lp, lc, h, lens, btab, enc_kv, j, kernel_backend="auto"):
+def _apply_layer_decode(cfg, lp, lc, h, lens, btab, enc_kv, j, kernel_backend="auto",
+                        dist: Dist = NO_DIST):
     """One layer, one token. ``lc``: this layer's cache slice (no group
     dim), written in place: pages by the attention step, states copied
     over."""
@@ -362,34 +397,34 @@ def _apply_layer_decode(cfg, lp, lc, h, lens, btab, enc_kv, j, kernel_backend="a
     x = L.apply_norm(cfg, lp["norm1"], h)
     if kind == "attn":
         mix, _, _ = L.attention_decode_paged(
-            cfg, lp["attn"], x, lc["k_pages"], lc["v_pages"], btab, lens, kernel_backend)
+            cfg, lp["attn"], x, lc["k_pages"], lc["v_pages"], btab, lens, kernel_backend, dist)
     else:
         step = {"mamba": M.mamba_decode, "mlstm": X.mlstm_decode,
                 "slstm": X.slstm_decode}[kind]
         mix, st = step(cfg, lp[kind], x, lc)
         for k, v in st.items():
             lc[k].copy_(v)
-    h = h + mix
+    h = h + _mixed(mix, dist)
     if "xattn" in lp:
         xh = L.apply_norm(cfg, lp["norm_x"], h)
-        h = h + L.cross_attention_decode(cfg, lp["xattn"], xh, *enc_kv)
-    return _apply_ffn(cfg, lp, h, j)
+        h = h + L.cross_attention_decode(cfg, lp["xattn"], xh, *enc_kv, dist)
+    return _apply_ffn(cfg, lp, h, j, dist=dist)
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor,
-                kernel_backend: str = "auto"):
+                dist: Dist = NO_DIST, kernel_backend: str = "auto"):
     """tokens (B, 1) -> (float32 logits (B, vocab), cache). Position = lens.
     The cache's tensors are updated in place; the returned dict is the same
-    one, with ``lens`` advanced by one."""
-    _check(cfg)
+    one, with ``lens`` advanced by one. ``dist`` places the MoE buffers'
+    constraints under a global-view mesh (the dry run's)."""
     lens, btab = cache["lens"], cache["btab"]
-    h = _embed_tokens(cfg, params, tokens, lens=lens)
+    h = _embed_tokens(cfg, params, tokens, lens=lens, dist=dist)
     for g in range(cfg.n_groups):
         gp, gc = _group(params["groups"], g), _group(cache["layers"], g)
         enc_kv = (cache["enc_k"][g], cache["enc_v"][g]) if cfg.encdec else None
         for j in range(cfg.group_size):
             h = _apply_layer_decode(cfg, gp[f"layer{j}"], gc[f"layer{j}"], h, lens, btab,
-                                    enc_kv, j, kernel_backend)
+                                    enc_kv, j, kernel_backend, dist)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = L.unembed(cfg, params["embed"], h[:, 0:1])[:, 0]
     cache["lens"] = lens + 1
@@ -400,11 +435,11 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor
 # prefill
 # ===========================================================================
 def prefill(cfg: ArchConfig, params: dict, batch: dict, max_seq: int | None = None,
-            n_pool: int | None = None):
+            dist: Dist = NO_DIST, n_pool: int | None = None):
     """Full-sequence forward: (last-token float32 logits, decode cache), on
     the device of ``batch["tokens"]``. ``batch`` may hold M-RoPE
-    ``positions`` (3, B, S) and an encoder-decoder's ``frames`` (B, F, d)."""
-    _check(cfg)
+    ``positions`` (3, B, S) and an encoder-decoder's ``frames`` (B, F, d).
+    ``dist`` as :func:`decode_step`'s."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
@@ -413,8 +448,8 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_seq: int | None = No
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
-    h = _embed_tokens(cfg, params, tokens)
-    enc_out = _encode(cfg, params, batch["frames"]) if cfg.encdec else None
+    h = _embed_tokens(cfg, params, tokens, dist=dist)
+    enc_out = _encode(cfg, params, batch["frames"], dist) if cfg.encdec else None
     layers = {f"layer{j}": {} for j in range(cfg.group_size)}
     enc_kv = []
     for g in range(cfg.n_groups):
@@ -423,23 +458,23 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_seq: int | None = No
             lp, kind = gp[f"layer{j}"], cfg.layer_kind(j)
             x = L.apply_norm(cfg, lp["norm1"], h)
             if kind == "attn":
-                mix, k, v = _attend(cfg, lp["attn"], x, positions, causal=True)
-                st = {"k_pages": _pack_pages(cfg, k, n_pool),
-                      "v_pages": _pack_pages(cfg, v, n_pool)}
+                mix, k, v = _attend(cfg, lp["attn"], x, positions, causal=True, dist=dist)
+                st = {"k_pages": _pack_pages(cfg, k, n_pool, dist),
+                      "v_pages": _pack_pages(cfg, v, n_pool, dist)}
             else:
                 run = {"mamba": M.mamba_prefill, "mlstm": X.mlstm_prefill,
                        "slstm": X.slstm_prefill}[kind]
                 mix, st = run(cfg, lp[kind], x)
             for key, t in st.items():
                 layers[f"layer{j}"].setdefault(key, []).append(t)
-            h = h + mix
+            h = h + _mixed(mix, dist)
             if "xattn" in lp:
                 xh = L.apply_norm(cfg, lp["norm_x"], h)
-                ek, ev = L.encoder_kv(cfg, lp["xattn"], enc_out)
-                h = h + L.cross_attention(cfg, lp["xattn"], xh, ek, ev)
+                ek, ev = L.encoder_kv(cfg, lp["xattn"], enc_out, dist)
+                h = h + L.cross_attention(cfg, lp["xattn"], xh, ek, ev, dist)
                 if j == 0:  # the cache keeps each group's first layer's, as the reference
                     enc_kv.append((ek, ev))
-            h = _apply_ffn(cfg, lp, h, j)
+            h = _apply_ffn(cfg, lp, h, j, dist=dist)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = L.unembed(cfg, params["embed"], h[:, -1:])[:, 0]
     cache = {

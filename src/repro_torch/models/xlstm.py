@@ -15,11 +15,19 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
 
-# the floor of the normalisers, as ``jnp.maximum(x, 1.0)``: where x is
-# exactly 1 (sLSTM's n after its first step) the gradient splits in half
-# between the two, as JAX's does; ``clamp`` would pass all of it to x
-_ONE = torch.tensor(1.0)
+def _floor_one(x: torch.Tensor) -> torch.Tensor:
+    """The floor of the normalisers, as ``jnp.maximum(x, 1.0)``: where x is
+    exactly 1 (sLSTM's n after its first step) the gradient splits in half
+    between the two, as JAX's does; ``clamp`` would pass all of it to x.
+    The 1 is made on x's device each call (a fake tensor under the dry
+    run)."""
+    return torch.maximum(x, x.new_ones(()))
 
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``'s formula, -logaddexp(-x, 0) (also an op with
+    a DTensor sharding rule, where ``log_sigmoid_forward`` has none)."""
+    return -torch.logaddexp(-x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 def _di(cfg: ArchConfig) -> int:
     return 2 * cfg.d_model
@@ -67,7 +75,7 @@ def _mlstm_step(q, k, v, i_log, f_log, state: dict) -> tuple:
     C = f_g[..., None, None] * C + i_g[..., None, None] * kv
     n = f_g[..., None] * n + i_g[..., None] * k
     num = torch.einsum("bhde,bhd->bhe", C, q)
-    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, q)), _ONE)
+    den = _floor_one(torch.abs(torch.einsum("bhd,bhd->bh", n, q)))
     return num / den[..., None], {"C": C, "n": n, "m": m_new}
 
 
@@ -86,7 +94,7 @@ def _mlstm_qkvif(cfg: ArchConfig, p: dict, x_in: torch.Tensor) -> tuple:
     v = bdproj(p["wv"])
     gates = torch.matmul(x_in.float(), p["w_if"]) + p["b_if"]
     i_log, f_log = gates.chunk(2, dim=-1)
-    return q, k, v, i_log, F.logsigmoid(f_log)
+    return q, k, v, i_log, _log_sigmoid(f_log)
 
 
 def _mlstm_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, state: dict) -> tuple:
@@ -150,13 +158,13 @@ def _slstm_step(gx: torch.Tensor, state: dict, r: torch.Tensor) -> dict:
     gf = gf + r[1] * h
     gz = gz + r[2] * h
     go = go + r[3] * h
-    f_log = F.logsigmoid(gf)
+    f_log = _log_sigmoid(gf)
     m_new = torch.maximum(f_log + m, gi)
     i_g = torch.exp(gi - m_new)
     f_g = torch.exp(f_log + m - m_new)
     c = f_g * c + i_g * torch.tanh(gz)
     n = f_g * n + i_g
-    h = torch.sigmoid(go) * c / torch.maximum(n, _ONE)
+    h = torch.sigmoid(go) * c / _floor_one(n)
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 

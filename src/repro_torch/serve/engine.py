@@ -110,7 +110,8 @@ class Engine:
         self.pstate = dataclasses.replace(st, gpt=self._t(gpt, torch.int32),
                                           rmap=self._t(rmap, torch.int32))
         self._sync_btab()
-        self.decode_fn = lambda p, c, t: model.decode(p, c, t, self.kernel_backend)
+        self.decode_fn = lambda p, c, t: model.decode(p, c, t,
+                                                      kernel_backend=self.kernel_backend)
 
     def _t(self, a: np.ndarray, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=self.device, dtype=dtype)

@@ -28,7 +28,9 @@ and state, bit-identical to every other. Ranks
 along the ``"model"`` axis compute the same values as their DP peer;
 splitting work over it (experts, heads, ff, vocab) is ROADMAP item 15d.
 With ``NO_DIST`` nothing is exchanged, and a one-rank mesh gives the
-no-mesh result bit for bit.
+no-mesh result bit for bit. Under a global-view mesh (``Dist.spmd``, the
+dry run's DTensors) the step is the one-device step over the global batch
+as written, and DTensor issues the reductions its layouts need.
 """
 from __future__ import annotations
 
@@ -59,13 +61,18 @@ def init_train_state(tcfg: TrainConfig, params) -> dict:
     return state
 
 
-def _split_micro(batch: dict, n: int) -> dict:
+def _split_micro(batch: dict, n: int, dist: Dist = NO_DIST) -> dict:
     """(B, ...) -> (n, B/n, ...); M-RoPE ``positions`` (3, B, S) -> (n, 3,
-    B/n, S)."""
+    B/n, S). Under a global-view mesh each micro-batch's rows are split
+    over the DP axes (the batch is replicated for the split, which DTensor
+    cannot make of rows split over the ranks)."""
     def split(key, x):
+        x = dist.constrain(x, *([None] * x.dim()))
         if key == "positions":
-            return x.reshape(x.shape[0], n, -1, *x.shape[2:]).transpose(0, 1)
-        return x.reshape(n, -1, *x.shape[1:])
+            x = x.reshape(x.shape[0], n, -1, *x.shape[2:]).transpose(0, 1)
+            return dist.constrain(x, None, None, dist.dp, *([None] * (x.dim() - 3)))
+        x = x.reshape(n, -1, *x.shape[1:])
+        return dist.constrain(x, None, dist.dp, *([None] * (x.dim() - 2)))
 
     return {k: split(k, v) for k, v in batch.items()}
 
@@ -140,9 +147,8 @@ def step_grads(model: Model, tcfg: TrainConfig, params, batch: dict,
     if n_micro == 1:
         loss, mets, grads = _grads(model, params, batch, dist)
     else:
-        micro = _split_micro(batch, n_micro)
-        grads = tr.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        micro = _split_micro(batch, n_micro, dist)
+        grads = tr.map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
         for i in range(n_micro):
             mb_loss, _, g = _grads(model, params, {k: v[i] for k, v in micro.items()}, dist)
@@ -154,7 +160,7 @@ def step_grads(model: Model, tcfg: TrainConfig, params, batch: dict,
             acc.div_(n_micro)
         loss = loss / n_micro
         mets = {}
-    if dist.mesh is not None:
+    if dist.dp_split:
         reduce_grads_(grads, dist)
         names = sorted(mets)
         total = dist.psum(torch.stack([loss, *(mets[k] for k in names)]), "loss")

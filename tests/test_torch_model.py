@@ -110,26 +110,26 @@ def _flatten(tree, prefix=()):
 
 
 def test_unported_families_raise():
-    """What is still not ported raises, citing its ROADMAP item: the
-    unrolled lowering (the dry-run's; in serving and in training). The
-    training meshes (``launch.train --mesh single|multi``) are ported: in a
-    job of one rank they refuse the production mesh's 256 or 512 ranks,
-    naming both counts."""
+    """Once the unported paths raised here; every family is ported now.
+    The unrolled attention's configs (the dry run's: ``unroll``,
+    ``causal_skip``, jamba with ``unroll``) build, init params and a cache,
+    and run ``forward_train`` to finite hidden states of the batch's shape.
+    What still raises: the training meshes (``launch.train --mesh
+    single|multi``) in a job of one rank refuse the production mesh's 256
+    or 512 ranks, naming both counts."""
     from repro_torch.launch import train as launch_train
 
     cfg = configs.reduced("qwen2-0.5b")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    for bad in (cfg.replace(unroll=True), cfg.replace(causal_skip=True),
-                configs.reduced("jamba-1.5-large-398b").replace(unroll=True)):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            T.init_cache(bad, 1, 16, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 17"):
-            registry.build(bad).init(seed=0, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 17"):
-            T.forward_train(bad, {}, batch)
-        with pytest.raises(NotImplementedError, match="item 17"):
-            registry.build(bad).loss_fn({}, batch)
+    for flags in (cfg.replace(unroll=True), cfg.replace(causal_skip=True),
+                  configs.reduced("jamba-1.5-large-398b").replace(unroll=True)):
+        cache = T.init_cache(flags, 1, 16, device="cpu")
+        assert cache["lens"].shape == (1,)
+        params = registry.build(flags).init(seed=0, device="cpu")
+        h, aux = T.forward_train(flags, params, batch)
+        assert h.shape == (1, 4, flags.d_model) and torch.isfinite(h).all()
+        assert torch.isfinite(aux)
     for mesh, ranks in (("single", 256), ("multi", 512)):
         with pytest.raises(ValueError, match=f"needs {ranks} ranks; this job has 1 "):
             launch_train.main(["--reduced", "--device", "cpu", "--mesh", mesh])

@@ -217,16 +217,17 @@ def test_attention_train_and_aux_loss_match_reference():
 def test_remat_and_chunk_recompute_change_no_result():
     """remat "block" (each group recomputed in the backward) against "none",
     and the cross-entropy with or without recomputed chunks: the loss and
-    every gradient bit for bit; ``cfg.unroll`` raises, citing item 17."""
+    every gradient bit for bit, with ``cfg.unroll`` (the unrolled
+    attention) as without it."""
     cfg, _ = cfgs("jamba-1.5-large-398b", n_layers=2, attn_period=2)
     tree = interop.cache_to_numpy(registry.build(cfg).init(seed=11, device="cpu"))
     batch = make_batch(cfg, 12)
-    results = [port_grads(cfg.replace(remat=remat), tree, batch) for remat in ("block", "none")]
-    (l0, m0, g0), (l1, m1, g1) = results
-    assert l0 == l1 and m0 == m1
-    assert all(torch.equal(g0[k], g1[k]) for k in g0)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_grads(cfg.replace(unroll=True), tree, batch)
+    for unroll in (False, True):
+        results = [port_grads(cfg.replace(remat=remat, unroll=unroll), tree, batch)
+                   for remat in ("block", "none")]
+        (l0, m0, g0), (l1, m1, g1) = results
+        assert l0 == l1 and m0 == m1
+        assert all(torch.equal(g0[k], g1[k]) for k in g0)
 
 
 def test_input_specs_match_reference():
